@@ -24,6 +24,10 @@ def pytest_configure(config):
         "markers",
         "tier2: sim<->serving parity / property suites, run as a separate "
         "non-blocking CI job (select with -m tier2)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (CUDA kernels have no CPU mode); skips "
+        "without one (select with -m cuda)")
 
 
 @pytest.fixture(scope="session")
