@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,18 +8,25 @@ beside this file, and nothing of the JAX package).  Phases, each printed
 on its own line:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build every kernel of the path from the checkout's sources (one
+2. build every kernel of the paths from the checkout's sources (one
    ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (ragged rows, pad rows, poisoned pages
-   past the lengths), with its time, the plain version's, a one-call
-   library yardstick's and the least time the card could take;
-4. full-width StableLM-3B (bf16, random weights from a seeded
-   ``torch.Generator``) served through ``repro_torch.launch.serve`` with
-   the paged engine, then a shorter pass with int8 page pools; every
-   request must complete with finite logits, through the kernel;
+   shapes the paths give it (paged attention: ragged rows, pad rows,
+   poisoned pages past the lengths; flash attention: StableLM's prefill
+   and the ragged, end-aligned, non-causal and windowed/softcapped GQA
+   cases; the WKV scan: RWKV-6 prefill and decode), with its time, the
+   plain version's, a one-call library yardstick's where PyTorch has one
+   and the least time the card could take;
+4. full-width models (bf16, random weights from a seeded
+   ``torch.Generator``) served through ``repro_torch.launch.serve``:
+   StableLM-3B on the paged engine (bf16, then int8 page pools), then
+   StableLM-3B and RWKV-6 1.6B on the dense slot-cache engine; every
+   request must complete with finite logits, and every forward pass must
+   go through the path's kernel (the counts are zeroed before each run);
 5. engine parity on the card: full width, depth cut to 2 layers, float32
-   (TF32 off), the kernel against the plain version, identical tokens.
+   (TF32 off), identical tokens for the paged and dense StableLM engines
+   with kernels against plain versions, dense against paged, and the
+   RWKV-6 dense engine with the kernel against the plain version.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -49,6 +56,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def least_time(torch, nbytes, ops, dtype):
+    """(ms, what binds, bytes, ops): the larger of the bytes over the HBM
+    rate and the operations over the peak rate for ``dtype``."""
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
 # ------------------------------------------------------------------ phase 1
 def device_info(torch) -> dict:
     smi = subprocess.run(
@@ -65,9 +81,26 @@ def device_info(torch) -> dict:
 
 
 # ------------------------------------------------------------------ phase 2
-def build_kernels() -> dict:
+def kernel_modules() -> dict:
+    """The wrapper module of every kernel of the paths, by kernel name."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
-    builders = {"paged_attention_mixed": pa_kernel.build}
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    return {"paged_attention_mixed": pa_kernel,
+            "flash_attention": fa_kernel, "rwkv6_scan": wkv_kernel}
+
+
+def zero_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def build_kernels() -> dict:
+    builders = {name: mod.build for name, mod in kernel_modules().items()}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builders.items()}
@@ -163,11 +196,7 @@ def attention_bound(torch, q, k_pages, bt, qpos, k_scales=None):
     if k_scales is not None:
         nbytes += 2 * len(touched) * page * kv * 4
     ops = 4 * hd * h * int((pos + 1).sum())                 # QK^T and PV
-    dtype = "float32" if q.dtype == torch.float32 else "bfloat16"
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return least_time(torch, nbytes, ops, q.dtype)
 
 
 def sdpa_yardstick(torch, q, k_pages, v_pages, bt, qpos, k_scales=None,
@@ -266,94 +295,335 @@ def check_kernels(torch) -> dict:
     return {"paged_attention_mixed": results}
 
 
+def flash_inputs(torch, b, s, t, h, kv, hd, dtype, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to("cuda", dtype)
+            for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd))]
+
+
+def flash_mask(torch, s, t, causal, window):
+    """[S, T] bool: the (query, key) pairs the end-aligned mask keeps."""
+    pos_q = torch.arange(s, device="cuda")[:, None] + (t - s)
+    pos_k = torch.arange(t, device="cuda")[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= pos_k <= pos_q
+    if window:
+        mask &= pos_k > pos_q - window
+    return mask
+
+
+def flash_bound(torch, q, k, mask):
+    """Least time for one call: q, k, v read once and the output written
+    once, against QK^T and PV over the (query, key) pairs the mask keeps
+    (4 * hd operations per pair and query head)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    es = q.element_size()
+    nbytes = 2 * b * s * h * hd * es + 2 * b * t * kv * hd * es
+    ops = 4 * hd * h * b * int(mask.sum())
+    return least_time(torch, nbytes, ops, q.dtype)
+
+
+def check_flash(torch) -> list:
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    # name, B, S, T, H, KV, hd, causal, window, softcap, dtype, tol
+    cases = [
+        ("stablelm prefill bf16", 1, 1024, 1024, 32, 32, 80, True, 0, None,
+         torch.bfloat16, 2e-2),
+        ("stablelm prefill f32", 1, 1024, 1024, 32, 32, 80, True, 0, None,
+         torch.float32, 2e-3),
+        ("ragged S=T=1000 bf16", 1, 1000, 1000, 32, 32, 80, True, 0, None,
+         torch.bfloat16, 2e-2),
+        ("end-aligned S=64 T=192 bf16", 1, 64, 192, 32, 32, 80, True, 0,
+         None, torch.bfloat16, 2e-2),
+        ("non-causal S=T=512 bf16", 1, 512, 512, 32, 32, 80, False, 0, None,
+         torch.bfloat16, 2e-2),
+        ("gqa H=32 KV=8 hd=128 window 256 softcap 50 bf16", 1, 1024, 1024,
+         32, 8, 128, True, 256, 50.0, torch.bfloat16, 2e-2),
+    ]
+    results = []
+    for (name, b, s, t, h, kv, hd, causal, window, cap, dt,
+         tol) in cases:
+        q, k, v = flash_inputs(torch, b, s, t, h, kv, hd, dt, seed=s + t)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out = fa_kernel.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, **kw)
+        err = float((out.float() - ref.float()).abs().max())
+        ok = bool(torch.allclose(out.float(), ref.float(), rtol=tol,
+                                 atol=tol))
+        ms = cuda_ms(torch, lambda: fa_kernel.flash_attention(q, k, v, **kw))
+        plain_ms = cuda_ms(torch, lambda: flash_attention_ref(q, k, v, **kw),
+                           iters=5)
+        mask = flash_mask(torch, s, t, causal, window)
+        lib_ms = None
+        if cap is None:
+            # one SDPA call on [B, H, S, hd] views (prepared untimed); the
+            # port never calls it
+            qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+            plain_causal = causal and s == t and not window
+            sdpa_kw = (dict(is_causal=True) if plain_causal else
+                       dict(attn_mask=mask) if causal or window else {})
+            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, enable_gqa=kv != h, **sdpa_kw))
+        bound_ms, bound_by, nbytes, ops = flash_bound(torch, q, k, mask)
+        res = {"case": name, "shape": {"B": b, "S": s, "T": t, "H": h,
+                                       "KV": kv, "hd": hd},
+               "causal": causal, "window": window, "softcap": cap,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "tol": tol, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+        results.append(res)
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)"
+        log(f"[3/5] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
+            f"hd={hd}: max_abs_err {err:.3g} (tol {tol}); kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+            f"{ops / 1e9:.3f} Gop)")
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with its plain "
+                                 f"version on {name}: max_abs_err {err}")
+        del q, k, v, out, ref, mask
+        torch.cuda.empty_cache()
+    return results
+
+
+def wkv_inputs(torch, b, s, h, hd, dtype, seed):
+    """r/k/v/w as the kernel tests draw them (w in (0.45, 0.95)), u and a
+    random initial state s0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, s, h, hd)) * 0.5 for _ in range(3))
+    w = 0.45 + 0.5 / (1 + np.exp(-rng.standard_normal((b, s, h, hd))))
+    u = rng.standard_normal((h, hd)) * 0.5
+    s0 = rng.standard_normal((b, h, hd, hd)) * 0.1
+
+    def dev(a, dt):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dt)
+    return ([dev(a, dtype) for a in (r, k, v, w)]
+            + [dev(u, torch.float32), dev(s0, torch.float32)])
+
+
+def wkv_bound(torch, r):
+    """Least time for one call: r, k, v, w, u and s0 read once, y and the
+    final state written once, against the operations the function needs
+    per head and step.  Since y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i,
+    the bonus term is O(hd): 5 hd operations (r u k and its sum, then
+    v_j times it, added to y_j).  The O(hd^2) work is 5 operations per
+    state element: r_i S_ij and its sum (2), w_i S_ij + k_i v_j (3).  Over
+    the f32 rate for f32 inputs (the bf16 tensor-core rate for bf16)."""
+    b, s, h, hd = r.shape
+    es = r.element_size()
+    n = b * s * h * hd
+    nbytes = 5 * n * es + h * hd * 4 + 2 * b * h * hd * hd * 4
+    ops = 5 * hd * (hd + 1) * h * b * s
+    return least_time(torch, nbytes, ops, r.dtype)
+
+
+def check_wkv(torch) -> list:
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    # name, B, S, H, hd, dtype, y tolerance (the state is held to 1e-4)
+    cases = [("rwkv6 prefill f32", 1, 1024, 32, 64, torch.float32, 1e-4),
+             ("rwkv6 decode B=8 S=1 f32", 8, 1, 32, 64, torch.float32, 1e-4),
+             ("ragged S=1000 f32", 1, 1000, 32, 64, torch.float32, 1e-4),
+             # y comes out in bf16: one bf16 ulp is 2^-8 of |y|
+             ("bf16 inputs S=1024", 1, 1024, 32, 64, torch.bfloat16, 1e-2)]
+    results = []
+    for name, b, s, h, hd, dt, tol in cases:
+        args = wkv_inputs(torch, b, s, h, hd, dt, seed=s + b)
+        y, sf = wkv_kernel.rwkv6_scan(*args)
+        torch.cuda.synchronize()
+        yr, sr = rwkv6_scan_ref(*args)
+        err = float((y.float() - yr.float()).abs().max())
+        s_err = float((sf - sr).abs().max())
+        ok = (bool(torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol))
+              and bool(torch.allclose(sf, sr, rtol=1e-4, atol=1e-4)))
+        ms = cuda_ms(torch, lambda: wkv_kernel.rwkv6_scan(*args))
+        plain_ms = cuda_ms(torch, lambda: rwkv6_scan_ref(*args), iters=3,
+                           warmup=1)
+        bound_ms, bound_by, nbytes, ops = wkv_bound(torch, args[0])
+        res = {"case": name, "shape": {"B": b, "S": s, "H": h, "hd": hd},
+               "dtype": str(dt).replace("torch.", ""),
+               "max_abs_err": max(err, s_err), "y_err": err,
+               "state_err": s_err, "tol": tol, "ok": ok, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ops": ops}
+        results.append(res)
+        log(f"[3/5] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
+            f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
+            f"{s_err:.3g} (rtol = atol = 1e-4); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"none, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop)")
+        if not ok:
+            raise AssertionError(f"WKV kernel disagrees with its plain "
+                                 f"version on {name}: y {err}, state {s_err}")
+        del args, y, sf, yr, sr
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------------ phase 4
+# tag, arch, backend, the path's kernel, serve options
+SERVE_RUNS = (
+    ("stablelm_3b paged bf16", "stablelm_3b", "paged",
+     "paged_attention_mixed", dict(requests=8, max_new=32)),
+    ("stablelm_3b paged int8", "stablelm_3b", "paged",
+     "paged_attention_mixed", dict(requests=4, max_new=8, kv_dtype="int8")),
+    ("stablelm_3b dense bf16", "stablelm_3b", "dense", "flash_attention",
+     dict(requests=8, max_new=32)),
+    ("rwkv6_1_6b dense bf16", "rwkv6_1_6b", "dense", "rwkv6_scan",
+     dict(requests=8, max_new=32)),
+)
+
+
 def serve_full_width(torch) -> dict:
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.launch.serve import serve
 
-    layers = get_config("stablelm_3b").num_layers
     runs = {}
-    for tag, kw in (("bf16", dict(requests=8, max_new=32)),
-                    ("int8", dict(requests=4, max_new=8, kv_dtype="int8"))):
+    for tag, arch, backend, kname, kw in SERVE_RUNS:
+        layers = get_config(arch).num_layers
         gc.collect()
         torch.cuda.empty_cache()
-        pa_kernel.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
-        out = serve(arch="stablelm_3b", reduce=False, qps=20.0,
+        out = serve(arch=arch, backend=backend, reduce=False, qps=20.0,
                     prompt_len=64, prompt_len_max=1024, slots=8,
                     seq_cap=2048, seed=0, device="cuda", **kw)
         wall = time.perf_counter() - t0
-        launches = pa_kernel.launches
+        counts = read_counts()
+        launches = counts[kname]
+        # flash runs once per layer of a prefill pass; the paged kernel
+        # and the WKV scan once per layer of every pass
+        passes = (out["prefill_passes"] if kname == "flash_attention"
+                  else out["forward_passes"])
         out.pop("outputs")
-        out.update(launches=launches, wall_s=wall)
+        out.update(kernel=kname, launches=launches, counts=counts,
+                   wall_s=wall)
         runs[tag] = out
-        log(f"[4/5] serve stablelm_3b full width ({tag}): completed "
+        log(f"[4/5] serve {tag} full width: completed "
             f"{out['completed']}/{out['offered']}, {out['steps']} steps, "
             f"TTFT p50 {out['ttft_p50_ms']:.2f} ms p99 "
             f"{out['ttft_p99_ms']:.2f} ms, ITL p50 {out['itl_p50_ms']:.2f} "
             f"ms p99 {out['itl_p99_ms']:.2f} ms, {out['tokens_per_s']:.1f} "
             f"tokens/s, peak memory {out['peak_mem_bytes'] / 2**30:.2f} "
-            f"GiB, kernel launches {launches} ({out['forward_passes']} "
-            f"forward passes x {layers} layers), wall {wall:.1f} s")
+            f"GiB, {kname} launches {launches} ({passes} "
+            f"{'prefill' if kname == 'flash_attention' else 'forward'} "
+            f"passes x {layers} layers), wall {wall:.1f} s")
         if out["completed"] != out["offered"]:
             raise AssertionError(f"{tag}: not every request completed")
         if not out["logits_finite"]:
             raise AssertionError(f"{tag}: non-finite logits")
-        if launches < out["steps"] * layers or \
-                launches != out["forward_passes"] * layers:
-            raise AssertionError(f"{tag}: {launches} kernel launches for "
-                                 f"{out['forward_passes']} forward passes")
+        if launches == 0 or launches != passes * layers:
+            raise AssertionError(f"{tag}: {launches} {kname} launches for "
+                                 f"{passes} passes x {layers} layers")
     return runs
 
 
 # ------------------------------------------------------------------ phase 5
-def engine_parity(torch) -> dict:
+PARITY_TRACE = [(200, 8), (37, 12), (120, 6), (9, 10), (250, 5)]
+
+
+def serve_trace(torch, cfg, params, backend, impl) -> tuple:
+    """Drain PARITY_TRACE through a fresh engine; returns (tokens per
+    request, step kinds, launch counts of the run)."""
     import numpy as np
-    from repro_torch.configs.base import get_config
-    from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n, _ in PARITY_TRACE]
+    eng = ServingEngine(cfg, params=params, max_slots=4, seq_cap=512,
+                        page_size=16, chunk_tokens=64, attn_impl=impl,
+                        backend=backend, device="cuda")
+    reqs = [Request(req_id=i, tenant="T1", prompt_len=len(p),
+                    max_new_tokens=mn, arrival=0.0, prompt_tokens=p.copy())
+            for i, (p, (_, mn)) in enumerate(zip(prompts, PARITY_TRACE))]
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"{backend}/{impl}: request {r.req_id} "
+                                 f"refused")
+    zero_counts()
+    kinds = []
+    while eng.has_work():
+        rep = eng.step()
+        eng.finalize_step(rep, float(len(kinds)))
+        kinds.append(rep.kind)
+        if len(kinds) > 500:
+            raise AssertionError(f"{backend}/{impl}: the engine did not "
+                                 f"drain")
+    if not eng.logits_finite:
+        raise AssertionError(f"{backend}/{impl}: non-finite logits")
+    return [r.output_tokens for r in reqs], kinds, read_counts()
+
+
+def engine_parity(torch) -> dict:
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tf32 = ("torch.backends.cuda.matmul.allow_tf32=False, "
+            "cudnn.allow_tf32=False")
+    out = {}
     cfg = get_config("stablelm_3b").replace(repeats=2, dtype="float32")
     params = Model(cfg, seed=1, device="cuda").params
-    trace = [(200, 8), (37, 12), (120, 6), (9, 10), (250, 5)]
-    rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n, _ in trace]
-    outputs = {}
-    for impl in ("auto", "ref"):
-        eng = ServingEngine(cfg, params=params, max_slots=4, seq_cap=512,
-                            page_size=16, chunk_tokens=64, attn_impl=impl,
-                            device="cuda")
-        reqs = [Request(req_id=i, tenant="T1", prompt_len=len(p),
-                        max_new_tokens=mn, arrival=0.0,
-                        prompt_tokens=p.copy())
-                for i, (p, (_, mn)) in enumerate(zip(prompts, trace))]
-        for r in reqs:
-            if not eng.submit(r):
-                raise AssertionError(f"{impl}: request {r.req_id} refused")
-        kinds = []
-        while eng.has_work():
-            rep = eng.step()
-            eng.finalize_step(rep, float(len(kinds)))
-            kinds.append(rep.kind)
-            if len(kinds) > 500:
-                raise AssertionError(f"{impl}: the engine did not drain")
-        outputs[impl] = [r.output_tokens for r in reqs]
-        del eng
-    same = outputs["auto"] == outputs["ref"]
-    log(f"[5/5] engine parity, stablelm_3b full width x 2 layers, float32 "
-        f"(torch.backends.cuda.matmul.allow_tf32=False, "
-        f"cudnn.allow_tf32=False): kernel vs plain attention, "
-        f"{sum(len(o) for o in outputs['ref'])} tokens over {len(trace)} "
-        f"requests, {kinds.count('mixed')} mixed steps of {len(kinds)}, "
-        f"identical={same}")
-    if not same:
-        raise AssertionError(f"kernel tokens {outputs['auto']} != plain "
-                             f"tokens {outputs['ref']}")
-    return {"identical": same, "tokens": outputs["ref"]}
+    runs = {(be, impl): serve_trace(torch, cfg, params, be, impl)
+            for be in ("paged", "dense") for impl in ("auto", "ref")}
+    del params
+    tokens = {key: r[0] for key, r in runs.items()}
+    kinds = runs[("paged", "auto")][1]
+    n_tok = sum(len(o) for o in tokens[("paged", "ref")])
+    checks = {
+        "paged kernel vs plain": tokens[("paged", "auto")]
+        == tokens[("paged", "ref")],
+        "dense kernel vs plain": tokens[("dense", "auto")]
+        == tokens[("dense", "ref")],
+        "dense vs paged": tokens[("dense", "auto")]
+        == tokens[("paged", "auto")],
+    }
+    launched = (runs[("paged", "auto")][2]["paged_attention_mixed"] > 0
+                and runs[("dense", "auto")][2]["flash_attention"] > 0
+                and not any(runs[(be, "ref")][2][k] for be in
+                            ("paged", "dense") for k in runs[(be, "ref")][2]))
+    for name, same in checks.items():
+        log(f"[5/5] engine parity, stablelm_3b full width x 2 layers, "
+            f"float32 ({tf32}): {name}, {n_tok} tokens over "
+            f"{len(PARITY_TRACE)} requests ({kinds.count('mixed')} mixed "
+            f"steps of {len(kinds)} paged), identical={same}")
+    out["stablelm_3b"] = {"checks": checks, "tokens": tokens[("paged",
+                                                              "ref")]}
+    cfg = get_config("rwkv6_1_6b").replace(repeats=2, dtype="float32")
+    params = Model(cfg, seed=2, device="cuda").params
+    rk = serve_trace(torch, cfg, params, "dense", "auto")
+    rr = serve_trace(torch, cfg, params, "dense", "ref")
+    del params
+    same = rk[0] == rr[0]
+    launched = (launched and rk[2]["rwkv6_scan"] > 0
+                and rr[2]["rwkv6_scan"] == 0)
+    log(f"[5/5] engine parity, rwkv6_1_6b full width x 2 layers, float32 "
+        f"({tf32}): dense kernel vs plain, "
+        f"{sum(len(o) for o in rr[0])} tokens over {len(PARITY_TRACE)} "
+        f"requests, {rk[2]['rwkv6_scan']} scan launches, identical={same}")
+    checks["rwkv6 dense kernel vs plain"] = same
+    out["rwkv6_1_6b"] = {"identical": same, "tokens": rr[0]}
+    if not launched:
+        raise AssertionError("a parity run's kernel route did not launch "
+                             "its kernel, or a plain run did")
+    bad = [name for name, same in checks.items() if not same]
+    if bad:
+        raise AssertionError(f"tokens differ: {bad}")
+    return out
 
 
 def main() -> int:
@@ -369,6 +639,8 @@ def main() -> int:
     report = {"device": device_info(torch)}
     report["build"] = build_kernels()
     report["kernels"] = check_kernels(torch)
+    report["kernels"]["flash_attention"] = check_flash(torch)
+    report["kernels"]["rwkv6_scan"] = check_wkv(torch)
     report["serve"] = serve_full_width(torch)
     report["parity"] = engine_parity(torch)
     report["total_s"] = time.perf_counter() - t0
@@ -376,19 +648,38 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    main_case = report["kernels"]["paged_attention_mixed"][0]
-    summary = {"kernels": [{
-        "name": "paged_attention_mixed", "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                  "paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:80",
-        "launches": report["serve"]["bf16"]["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in
-                           report["kernels"]["paged_attention_mixed"]),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]}
+    # per kernel: its source, the TPU kernel it replaces, and the serve
+    # run of phase 4 whose launches it reports; times from its first
+    # (main-path) case of phase 3
+    meta = {
+        "paged_attention_mixed": (
+            "src/repro_torch/kernels/paged_attention/csrc/"
+            "paged_attention.cu",
+            "src/repro/kernels/paged_attention/kernel.py:80",
+            "stablelm_3b paged bf16"),
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:85",
+            "stablelm_3b dense bf16"),
+        "rwkv6_scan": (
+            "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+            "src/repro/kernels/rwkv6_scan/kernel.py:54",
+            "rwkv6_1_6b dense bf16"),
+    }
+    summary = {"kernels": []}
+    for name, (source, replaces, run) in meta.items():
+        cases = report["kernels"][name]
+        main_case = cases[0]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": report["serve"][run]["launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"]})
     log(f"total {report['total_s']:.1f} s")
     print(report["device"]["nvidia_smi"])
     print(json.dumps(summary))

@@ -1,7 +1,8 @@
-"""Where a serving step's time goes on the card: the paged engine at full
-width under ``torch.profiler``.
+"""Where a serving step's time goes on the card: an engine at full width
+under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch stablelm_3b|rwkv6_1_6b] [--backend dense|paged] \
         [--requests 8] [--kv-dtype int8] [--out chiprun_out/profile.json]
 
 Submits ``requests`` prompts of 64..1024 tokens at once to a warmed engine
@@ -10,8 +11,10 @@ fresh engine over the same weights: first without the profiler, for the
 steps' compute time, then under it.  The profiler adds host time to every
 launch but not device time, so the device's busy time under it (the union
 of kernel intervals) over the first drain's compute time is the busy share
-of an unprofiled step.  Prints both, and device time grouped by kernel
-family and by kernel name.  Needs a CUDA device.
+of an unprofiled step.  Prints both, the kernels launched per step, and
+device time grouped by kernel family (with each family's share of the busy
+time) and by kernel name.  The backend is the dense slot cache unless
+``--backend paged``, as in ``launch/serve.py``.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import numpy as np
 import torch
 
 _FAMILIES = (("paged_attention", ("paged_attention",)),
+             ("flash_attention", ("flash_attention",)),
+             ("rwkv6_scan", ("rwkv6_scan",)),
              ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
              ("index/scatter", ("index", "scatter", "gather")),
              ("reduce", ("reduce", "norm")))
@@ -55,6 +60,8 @@ def busy_union(intervals) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="stablelm_3b")
+    ap.add_argument("--backend", choices=("dense", "paged"), default="dense")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--kv-dtype", choices=("auto", "int8"), default="auto")
@@ -67,13 +74,13 @@ def main(argv=None):
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
-    cfg = get_config("stablelm_3b")
+    cfg = get_config(args.arch)
+    params = None
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, int(n))
                for n in rng.integers(64, 1025, args.requests)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    params = None
 
     def drain(profile: bool):
         """A fresh warmed engine serves every prompt, its steps under the
@@ -82,7 +89,8 @@ def main(argv=None):
         nonlocal params
         eng = ServingEngine(cfg, params=params, max_slots=8, seq_cap=2048,
                             page_size=16, seed=args.seed,
-                            kv_dtype=args.kv_dtype, device="cuda")
+                            backend=args.backend, kv_dtype=args.kv_dtype,
+                            device="cuda")
         params = eng.params
         warm_engine(eng, "T1", 64)
         for i, p in enumerate(prompts):
@@ -123,15 +131,17 @@ def main(argv=None):
     span_us = (max(e for _, e in intervals) - min(s for s, _ in intervals)
                if intervals else 0.0)
     out = {
-        "device": torch.cuda.get_device_name(0),
-        "kv_dtype": args.kv_dtype, "steps": steps,
+        "device": torch.cuda.get_device_name(0), "arch": args.arch,
+        "backend": args.backend, "kv_dtype": args.kv_dtype, "steps": steps,
         "unprofiled_steps_compute_s": plain_compute_s,
         "host_wall_s": wall, "steps_compute_s": compute_s,
         "device_busy_s": busy_us / 1e6, "device_span_s": span_us / 1e6,
         "idle_share_of_compute": 1.0 - busy_us / 1e6 / compute_s,
         "idle_share_unprofiled": 1.0 - busy_us / 1e6 / plain_compute_s,
-        "kernels": len(kernels),
+        "kernels": len(kernels), "kernels_per_step": len(kernels) / steps,
         "by_family_s": {k: v / 1e6 for k, v in sorted(
+            by_family.items(), key=lambda kv: -kv[1])},
+        "by_family_share_of_busy": {k: v / busy_us for k, v in sorted(
             by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels_s": {k: v / 1e6 for k, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:15]},

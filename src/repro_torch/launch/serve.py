@@ -1,23 +1,24 @@
-"""Serving launcher: one tenant, one replica, the paged engine, on a virtual
-clock (the PyTorch twin of the single-tenant core of
-``repro/launch/serve.py``).
+"""Serving launcher: one tenant, one replica, on a virtual clock (the
+PyTorch twin of the single-tenant core of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \
-        --device cuda [--full-width] [--kv-dtype int8] [--spec-k 3]
+        --device cuda [--full-width] [--arch rwkv6_1_6b] \
+        [--backend paged [--kv-dtype int8] [--spec-k 3]]
 
 Seeded Poisson arrivals at ``qps`` reach one ``ServingEngine``; after a
 warm-up drain (kernel build, allocator warm-up) kept out of the metrics,
 the engine steps back to back and the virtual clock advances by each
-step's measured ``compute_s``.  Prompts are a shared per-tenant template
-(two thirds of the shortest prompt, page-aligned) plus a random tail, as
-in the reference's paged traffic.  It serves ``reduced(get_config(arch))``
-unless ``reduce=False`` (``--full-width``).
+step's measured ``compute_s``.  The backend is the dense slot cache unless
+``--backend paged``, as in the reference.  Paged prompts are a shared
+per-tenant template (two thirds of the shortest prompt, page-aligned) plus
+a random tail; dense prompts are left to the engine, which draws them from
+its seeded generator, as in the reference.  It serves
+``reduced(get_config(arch))`` unless ``reduce=False`` (``--full-width``).
 
 The reference's multi-tenant, multi-replica harness (gateway, router,
 controller, admission, interference, chaos, migration, tracing) is not
 ported yet: the port runs as the reference does with ``--no-controller``,
-and the harness's other flags are refused with an error naming ROADMAP A5
-(``--backend dense`` names A4).
+and the harness's other flags are refused with an error naming ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -56,11 +57,14 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
           slots: int = 4, seq_cap: int = 128, seed: int = 0,
           verbose: bool = True, kv_dtype: str = "auto",
           prefix_cache: bool = True, spec_k: int = 0, reduce: bool = True,
-          device="cuda"):
+          backend: str = "dense", params=None, device="cuda"):
     """Virtual-time single-tenant serving run; returns its stats.
 
     Prompt lengths are ``prompt_len``, or drawn uniformly from
-    ``[prompt_len, prompt_len_max]`` when that is given."""
+    ``[prompt_len, prompt_len_max]`` when that is given.  ``params`` are
+    the weights to serve (a nested dict of tensors with the plan's names,
+    for the config ``arch`` and ``reduce`` select); ``None`` draws random
+    ones from ``seed``."""
     import torch
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.device import resolve_device
@@ -72,10 +76,11 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     if reduce:
         cfg = reduced(cfg)
     name = "T1"
-    eng = ServingEngine(cfg, max_slots=slots, seq_cap=seq_cap,
-                        page_size=_PAGE, seed=seed, kv_dtype=kv_dtype,
-                        prefix_cache=prefix_cache, spec_k=spec_k,
-                        device=dev)
+    paged = backend == "paged"
+    eng = ServingEngine(cfg, params, max_slots=slots, seq_cap=seq_cap,
+                        page_size=_PAGE, seed=seed, backend=backend,
+                        kv_dtype=kv_dtype, prefix_cache=prefix_cache,
+                        spec_k=spec_k, device=dev)
     # warm-up (kernel build, allocator and library warm-up) stays out of
     # the virtual clock and the metrics
     warm_engine(eng, name, prompt_len)
@@ -86,20 +91,23 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     hi = prompt_len if prompt_len_max is None else prompt_len_max
     lens = rng.integers(prompt_len, hi + 1, requests)
     tmpl_len = (prompt_len * 2 // 3) // _PAGE * _PAGE
-    templates = rng.integers(0, cfg.vocab_size, (4, tmpl_len))
+    templates = (rng.integers(0, cfg.vocab_size, (4, tmpl_len)) if paged
+                 else None)
     arrivals = np.cumsum(rng.exponential(1.0 / qps, requests))
     reqs = []
     for i, (n, t) in enumerate(zip(lens, arrivals)):
-        head = templates[int(rng.integers(len(templates)))]
-        tail = rng.integers(0, cfg.vocab_size, int(n) - tmpl_len)
+        prompt = None
+        if paged:
+            head = templates[int(rng.integers(len(templates)))]
+            tail = rng.integers(0, cfg.vocab_size, int(n) - tmpl_len)
+            prompt = np.concatenate([head, tail]).astype(np.int64)
         reqs.append(Request(req_id=i, tenant=name, prompt_len=int(n),
                             max_new_tokens=max_new, arrival=float(t),
-                            slo_ms=200.0,
-                            prompt_tokens=np.concatenate([head, tail])
-                            .astype(np.int64)))
+                            slo_ms=200.0, prompt_tokens=prompt))
     if verbose:
         print(f"serving {cfg.name} ({cfg.num_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.dtype}, kv {kv_dtype}) on {dev}: "
+              f"{cfg.d_model}, {cfg.dtype}, {backend}, kv {kv_dtype}) on "
+              f"{dev}: "
               f"{requests} req at {qps} qps, prompts {prompt_len}-{hi}, "
               f"max_new {max_new}")
 
@@ -140,14 +148,15 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     out = {
         "completed": len(done), "offered": len(reqs),
         "rejected": len(rejected), "steps": steps,
-        "forward_passes": eng.runtime.forward_passes,
+        "backend": backend, "forward_passes": eng.forward_passes,
+        "prefill_passes": eng.prefill_passes,
         "compute_s": compute_s, "virtual_s": now,
         "ttft_p50_ms": q(ttfts, .5), "ttft_p99_ms": q(ttfts, .99),
         "itl_p50_ms": q(itls, .5), "itl_p99_ms": q(itls, .99),
         "tokens_per_s": gen / span if span > 0 else 0.0,
         "generated_tokens": gen,
         "prompt_tokens": int(sum(r.prompt_len for r in reqs)),
-        "logits_finite": eng.runtime.logits_finite,
+        "logits_finite": eng.logits_finite,
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
         "outputs": {int(r.req_id): [int(t) for t in r.output_tokens]
@@ -160,7 +169,8 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
               f"p99={out['ttft_p99_ms']:.1f}ms "
               f"ITL p50={out['itl_p50_ms']:.1f}ms "
               f"p99={out['itl_p99_ms']:.1f}ms "
-              f"tokens/s={out['tokens_per_s']:.1f}")
+              f"tokens/s={out['tokens_per_s']:.1f} "
+              f"logits_finite={out['logits_finite']}")
     return out
 
 
@@ -183,7 +193,9 @@ def main(argv=None):
                     help="serve the published config instead of reduced()")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--backend", choices=("dense", "paged"), default="paged")
+    ap.add_argument("--backend", choices=("dense", "paged"), default="dense",
+                    help="engine KV backend: dense slot cache or the paged "
+                         "runtime")
     ap.add_argument("--tenants", type=int, default=1)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--no-controller", action="store_true",
@@ -202,15 +214,13 @@ def main(argv=None):
                          f"(ROADMAP A5)")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.backend == "dense":
-        raise SystemExit("error: --backend dense: the dense backend is not "
-                         "ported yet (ROADMAP A4)")
     serve(arch=args.arch, requests=args.requests, qps=args.qps,
           prompt_len=args.prompt_len, prompt_len_max=args.prompt_len_max,
           max_new=args.max_new, slots=args.slots, seq_cap=args.seq_cap,
           seed=args.seed, kv_dtype=args.kv_dtype,
           prefix_cache=not args.no_prefix_cache, spec_k=args.spec_k,
-          reduce=not args.full_width, device=args.device)
+          reduce=not args.full_width, backend=args.backend,
+          device=args.device)
 
 
 if __name__ == "__main__":

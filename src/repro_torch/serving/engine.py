@@ -1,25 +1,69 @@
-"""Continuous-batching serving engine: the PyTorch twin of
-``repro/serving/engine.py``, with the paged backend.
+"""Continuous-batching serving engine with two interchangeable backends: the
+PyTorch twin of ``repro/serving/engine.py``.
 
 One engine serves one tenant's model on one device.  It performs *one unit
-of work* per ``step()`` call — one fused mixed prefill+decode pass of the
-paged runtime (``serving/paged_runtime.py``) — and reports the measured
-compute seconds.  The harness decides what virtual time the step consumed
-and then calls ``finalize_step`` so TTFT and completion timestamps reflect
-the environment.
+of work* per ``step()`` call and reports the measured compute seconds
+(the device is synchronised before and after, so they are the step's
+device time plus its host work).  The harness decides what virtual time
+the step consumed and then calls ``finalize_step`` so TTFT and completion
+timestamps reflect the environment.
 
-The dense slot-cache backend is not ported yet (ROADMAP A4).
+Backends (``backend=`` ctor arg, same public API either way):
+
+* ``"dense"`` (the default, as in the reference) — the slot cache:
+  ``[max_slots, seq_cap]`` KV (or RWKV state) per layer, whole-prompt
+  prefill of one request per step, one batched decode step over every
+  slot; prompt+max_new pages are reserved at submit and admission rejects
+  when the pool is full.
+* ``"paged"`` — the block-table runtime (``serving/paged_runtime.py``):
+  one fused mixed prefill+decode pass per step over a page pool.
+
+Differences from the reference's dense backend, none of which changes a
+token: the slot merge and every decode write go IN PLACE into the stacked
+cache (the JAX code builds a new cache); the timed region of a prefill
+covers the merge into the slot cache; a request whose prompt+max_new
+exceeds ``seq_cap`` is refused (``EXCEEDS_SEQ_CAP``) where the reference
+would write past the cache.  ``set_quota`` comes with the controller
+(ROADMAP A5): the quota stays 1.0.
 """
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, cache_plan, decode_step, prefill
+from repro_torch.models.params import P, map_plan, torch_dtype
+from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.metrics import TenantMetrics
-from repro_torch.serving.request import Request, SubmitOutcome
+from repro_torch.serving.request import (ADMITTED, EXCEEDS_SEQ_CAP,
+                                         POOL_EXHAUSTED, Request,
+                                         SubmitOutcome)
+
+
+def init_cache_from_plan(plan, device):
+    """Zero-initialised cache on ``device`` (pos arrays get -1)."""
+    def leaf(p: P):
+        if p.dtype == "int32":
+            return torch.full(p.shape, -1, dtype=torch.int32, device=device)
+        return torch.zeros(p.shape, dtype=torch_dtype(p.dtype),
+                           device=device)
+    return map_plan(leaf, plan)
+
+
+def _copy_leaves(dst, src, write) -> None:
+    """``write(dst_leaf, src_leaf)`` for every leaf of two equal trees."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_leaves(dst[k], src[k], write)
+    else:
+        write(dst, src)
 
 
 @dataclass
@@ -60,68 +104,165 @@ class StepReport:
 class ServingEngine:
     """``params`` is a nested dict of tensors with the JAX plan's names (for
     instance from ``models/bridge.py``); ``None`` initialises random weights
-    on ``device`` from a ``torch.Generator`` seeded with ``seed``."""
+    on ``device`` from a ``torch.Generator`` seeded with ``seed``.
+
+    ``attn_impl`` routes every kernel of the path ("auto": the CUDA kernel
+    on CUDA tensors, the plain version on the CPU; "kernel"; "ref")."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, max_slots: int = 8,
                  seq_cap: int = 256, page_size: int = 16, seed: int = 0,
-                 backend: str = "paged", pool_pages: Optional[int] = None,
+                 backend: str = "dense", pool_pages: Optional[int] = None,
                  chunk_tokens: Optional[int] = None, attn_impl: str = "auto",
                  kv_dtype: str = "auto", prefix_cache: bool = True,
-                 spec_k: int = 0, device="cuda"):
-        if backend == "dense":
-            raise NotImplementedError(
-                "the dense slot-cache backend is not ported yet (ROADMAP "
-                "A4); use backend='paged'")
-        if backend != "paged":
+                 spec_k: int = 0, response_cache=None, device="cuda"):
+        if backend not in ("dense", "paged"):
             raise ValueError(f"unknown backend {backend!r}")
+        if kv_dtype != "auto" and backend == "dense":
+            raise ValueError(
+                "kv_dtype applies to the paged backend's page pools; the "
+                "dense slot cache quantizes via REPRO_KV_INT8=1")
+        if spec_k and backend == "dense":
+            raise ValueError(
+                "speculative decode lanes (spec_k) need the paged "
+                "runtime's ragged verify step; use backend='paged'")
+        if response_cache is not None and response_cache is not False:
+            if backend == "dense":
+                raise ValueError(
+                    "the response cache primes speculative draft hints at "
+                    "submit, which needs the paged scheduler; use "
+                    "backend='paged'")
+            raise NotImplementedError(
+                "the response cache (serving/directory.py) is not ported "
+                "yet (ROADMAP A5)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg, params, seed=seed, device=self.device)
         self.params = self.model.params
+        self.max_slots = max_slots
+        self.seq_cap = seq_cap
         self.backend = backend
+        self.attn_impl = attn_impl
+        self.quota = 1.0
         self.metrics = TenantMetrics()
         # optional flight recorder with ``on_step(report, start, end,
         # engine=...)``: ``finalize_step`` folds each step into per-request
         # timelines.  None (the default) costs one guard per step.
         self.tracer = None
-        from repro_torch.serving.paged_runtime import PagedRuntime
-        self.runtime = PagedRuntime(
-            cfg, self.params, max_slots=max_slots, seq_cap=seq_cap,
-            page_size=page_size, pool_pages=pool_pages,
-            chunk_tokens=chunk_tokens, attn_impl=attn_impl,
-            kv_dtype=kv_dtype, prefix_cache=prefix_cache, spec_k=spec_k,
-            seed=seed, device=self.device)
-        self.kv = self.runtime.kv
+        # forward passes run (all, and the prefills among them); on the
+        # paged backend every pass is a fused mixed step
+        self.forward_passes = 0
+        self.prefill_passes = 0
+        if backend == "paged":
+            from repro_torch.serving.paged_runtime import PagedRuntime
+            self.runtime = PagedRuntime(
+                cfg, self.params, max_slots=max_slots, seq_cap=seq_cap,
+                page_size=page_size, pool_pages=pool_pages,
+                chunk_tokens=chunk_tokens, attn_impl=attn_impl,
+                kv_dtype=kv_dtype, prefix_cache=prefix_cache, spec_k=spec_k,
+                seed=seed, device=self.device)
+            self.kv = self.runtime.kv
+            return
+        self.runtime = None
+        self._rng = np.random.default_rng(seed)
+        self._finite = True
+        self.queue: deque = deque()
+        self.slots: List[Optional[Request]] = [None] * max_slots
+        self.positions = np.zeros(max_slots, np.int32)
+        self.last_token = np.zeros(max_slots, np.int32)
+        # paged accounting mirrors the dense slot cache capacity
+        self.kv = PagedKVCache(num_pages=max_slots * (seq_cap // page_size),
+                               page_size=page_size)
+        self.cache = init_cache_from_plan(cache_plan(cfg, max_slots, seq_cap),
+                                          self.device)
 
     # ------------------------------------------------------------------ API
+    @property
+    def active_slot_budget(self) -> int:
+        return max(1, int(np.ceil(self.quota * self.max_slots)))
+
+    @property
+    def logits_finite(self) -> bool:
+        """Whether every forward pass so far gave finite logits on the rows
+        of live requests."""
+        if self.runtime is not None:
+            return self.runtime.logits_finite
+        return self._finite
+
     def submit(self, req: Request) -> SubmitOutcome:
-        """A falsy :class:`SubmitOutcome` when the request can never fit;
-        pool pressure is resolved by preemption instead."""
-        return self.runtime.submit(req)
+        """A falsy :class:`SubmitOutcome` when admission rejects.  The dense
+        backend rejects whenever the conservative prompt+max_new page
+        reservation does not fit (transient: the pool drains as requests
+        finish); the paged backend only rejects requests that could NEVER
+        fit and resolves pool pressure by preemption."""
+        if self.runtime is not None:
+            return self.runtime.submit(req)
+        if req.prompt_len + req.max_new_tokens > self.seq_cap:
+            return EXCEEDS_SEQ_CAP
+        if not self.kv.can_admit(req.prompt_len, req.max_new_tokens):
+            return POOL_EXHAUSTED
+        self.kv.allocate(req.req_id, req.prompt_len,
+                         req.prompt_len + req.max_new_tokens)
+        self.queue.append(req)
+        return ADMITTED
 
     def has_work(self) -> bool:
-        return self.runtime.has_work()
+        if self.runtime is not None:
+            return self.runtime.has_work()
+        return bool(self.queue) or any(s is not None for s in self.slots)
 
     def drain_requests(self) -> List[Request]:
         """Replica death / planned drain: release every KV page and return
-        the resident requests rolled to a restartable state."""
-        drained = self.runtime.drain_for_redrive()
-        self.kv.release_all()        # safety net: no page outlives death
+        the resident requests (queued, prefilling and decoding alike)
+        rolled to a restartable state (outputs cleared, the original
+        ``prefill_done`` stamp kept so TTFT is not double-counted)."""
+        if self.runtime is not None:
+            drained = self.runtime.drain_for_redrive()
+            self.kv.release_all()        # safety net: no page outlives death
+            return drained
+        drained = list(self.queue)
+        self.queue.clear()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.slots[i] = None
+            drained.append(req)
+        for req in drained:
+            req.generated = 0
+            req.slot = -1
+            req.output_tokens.clear()
+            req.decode_times.clear()
+        self.kv.release_all()
         return drained
 
     # ----------------------------------------------------------------- step
     def step(self) -> StepReport:
         """One unit of work.  Compute time measured with a real clock."""
-        report = self.runtime.step()
+        report = self._step_backend()
+        if report.kind != "idle":
+            self.forward_passes += 1
+            self.prefill_passes += bool(report.prefilled
+                                        or report.prefill_tokens)
         self.metrics.observe_kv(self.kv.used_pages, self.kv.reserved_pages,
                                 self.kv.num_pages)
         self.metrics.observe_prefill(report.prefill_tokens,
                                      report.prefix_hit_tokens)
         self.metrics.observe_spec(report.drafted_tokens,
                                   report.accepted_tokens)
-        self.metrics.observe_response_cache(self.runtime.sched.rc_lookups,
-                                            self.runtime.sched.rc_hits)
+        if self.runtime is not None:
+            self.metrics.observe_response_cache(
+                self.runtime.sched.rc_lookups, self.runtime.sched.rc_hits)
         return report
+
+    def _step_backend(self) -> StepReport:
+        if self.runtime is not None:
+            return self.runtime.step()
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        n_active = self.max_slots - len(free)
+        if self.queue and free and n_active < self.active_slot_budget:
+            return self._do_prefill(free[0])
+        if n_active:
+            return self._do_decode()
+        return StepReport(kind="idle")
 
     def finalize_step(self, report: StepReport, end_time: float,
                       start_time: Optional[float] = None) -> None:
@@ -151,3 +292,93 @@ class ServingEngine:
         if self.tracer is not None:
             self.tracer.on_step(report, start_time, end_time,
                                 engine=self.backend)
+
+    # ------------------------------------------------------------ internals
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _merge_slot_cache(self, cache1, slot: int) -> None:
+        """Copy a single-sequence prefill cache into the batched slot cache
+        IN PLACE.  Prefix-layer leaves are [batch, ...] but period leaves
+        are stacked [repeats, batch, ...], so the period group is written
+        along axis 1: writing it along axis 0 would put one request's KV on
+        the repeats axis of every slot."""
+        if "prefix" in self.cache:
+            _copy_leaves(self.cache["prefix"], cache1["prefix"],
+                         lambda full, one: full[slot].copy_(one[0]))
+        if "period" in self.cache:
+            _copy_leaves(self.cache["period"], cache1["period"],
+                         lambda full, one: full[:, slot].copy_(one[:, 0]))
+
+    def _prompt_tokens(self, req: Request):
+        """[1, S] prompt; a request without tokens draws them from the
+        engine's seeded numpy generator, in the reference's order."""
+        if req.prompt_tokens is not None:
+            toks = np.asarray(req.prompt_tokens)
+        else:
+            toks = self._rng.integers(0, self.cfg.vocab_size, req.prompt_len)
+        return torch.tensor(toks, dtype=torch.long, device=self.device)[None]
+
+    def _do_prefill(self, slot: int) -> StepReport:
+        req = self.queue.popleft()
+        tokens = self._prompt_tokens(req)
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache1 = prefill(self.params, self.cfg, tokens,
+                                 seq_cap=self.seq_cap, impl=self.attn_impl)
+        self._merge_slot_cache(cache1, slot)
+        first_tok = int(logits[0].argmax())
+        self._sync()
+        dt = time.perf_counter() - t0
+        self._finite &= bool(torch.isfinite(logits).all())
+        req.slot = slot
+        req.generated = 1
+        req.output_tokens.append(first_tok)
+        self.slots[slot] = req
+        self.positions[slot] = req.prompt_len
+        self.last_token[slot] = first_tok
+        report = StepReport(kind="prefill", compute_s=dt, tokens=req.prompt_len,
+                            prefill_tokens=req.prompt_len, prefilled=[req])
+        report.chunks.append((req, 0, req.prompt_len, 0))
+        if req.generated >= req.max_new_tokens:
+            self._retire(req, report)
+        return report
+
+    def _do_decode(self) -> StepReport:
+        """One token for every slot (empty slots decode harmlessly at their
+        stale positions, as in the reference; their rows are ignored)."""
+        toks = torch.tensor(self.last_token, dtype=torch.long,
+                            device=self.device)
+        pos = torch.tensor(self.positions, dtype=torch.int32,
+                           device=self.device)
+        self._sync()
+        t0 = time.perf_counter()
+        logits = decode_step(self.params, self.cfg, self.cache, toks, pos,
+                             impl=self.attn_impl)
+        next_tokens = logits.argmax(dim=-1).cpu().numpy()
+        self._sync()
+        dt = time.perf_counter() - t0
+        live = [i for i, r in enumerate(self.slots) if r is not None]
+        self._finite &= bool(torch.isfinite(logits[live]).all())
+        report = StepReport(kind="decode", compute_s=dt)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.positions[i] += 1
+            self.last_token[i] = int(next_tokens[i])
+            req.generated += 1
+            req.output_tokens.append(int(next_tokens[i]))
+            self.kv.append_token(req.req_id)
+            report.tokens += 1
+            report.decode_tokens += 1
+            report.decoded.append(req)
+            if req.generated >= req.max_new_tokens:
+                self._retire(req, report)
+        return report
+
+    def _retire(self, req: Request, report: StepReport) -> None:
+        if req.slot >= 0:
+            self.slots[req.slot] = None
+        self.kv.release(req.req_id)
+        report.completed.append(req)

@@ -41,8 +41,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_attention_mixed
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import apply_rope, einsum, rms_norm
-from repro_torch.models.model import _apply_ffn, _logits, embed_tokens
-from repro_torch.models.params import map_plan, torch_dtype
+from repro_torch.models.model import (_apply_ffn, _logits, embed_tokens,
+                                      layer_walk)
+from repro_torch.models.params import torch_dtype
 from repro_torch.serving.engine import StepReport
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.request import EXCEEDS_SEQ_CAP, Request, SubmitOutcome
@@ -142,30 +143,23 @@ class PagedRuntime:
         return pools
 
     def _layer_walk(self) -> List[tuple]:
-        """(layer params, LayerSpec, page-pool views) per layer in order:
-        the prefix layers, then each repeat of the period.  The stacked
-        period leaves are indexed once here; every view aliases its
-        stacked tensor, so an in-place write through a view lands in the
-        pool."""
-        cfg, params = self.cfg, self.params
+        """(layer params, LayerSpec, page-pool views) per layer in order
+        (``models.model.layer_walk``).  A period layer's views index its
+        stacked pools, so an in-place write through a view lands in the
+        pool: each view must start exactly at its repeat's offset in the
+        pool, checked here once."""
         walk = []
-        for i, layer in enumerate(cfg.prefix):
-            key = f"layer{i}"
-            walk.append((params["prefix"][key], layer,
-                         self.pools["prefix"][key]))
-        for r in range(cfg.repeats if cfg.period else 0):
-            for i, layer in enumerate(cfg.period):
-                sub = f"sub{i}"
-                lp = map_plan(lambda a: a[r], params["period"][sub])
-                stacked = self.pools["period"][sub]
-                views = {k: t[r] for k, t in stacked.items()}
-                for k, view in views.items():
-                    base = stacked[k]
-                    if view.data_ptr() != (base.data_ptr() + r * base.stride(0)
-                                           * base.element_size()):
-                        raise RuntimeError(f"pool view {sub}/{k}[{r}] does "
-                                           f"not alias its stacked pool")
-                walk.append((lp, layer, views))
+        for lp, layer, views, (group, key, r) in layer_walk(
+                self.cfg, self.params, self.pools):
+            for k, view in views.items():
+                base = self.pools[group][key][k]
+                want = base.data_ptr() + (
+                    0 if r is None else r * base.stride(0)
+                    * base.element_size())
+                if view.data_ptr() != want:
+                    raise RuntimeError(f"pool view {group}/{key}/{k} does "
+                                       f"not alias its stacked pool")
+            walk.append((lp, layer, views))
         return walk
 
     # ------------------------------------------------------- forward: shared

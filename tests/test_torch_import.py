@@ -28,6 +28,8 @@ def _run(code: str) -> str:
 def test_every_module_imports_with_jax_absent():
     mods = _modules()
     assert "repro_torch.serving.paged_runtime" in mods
+    assert "repro_torch.models.rwkv" in mods
+    assert "repro_torch.kernels.flash_attention.kernel" in mods
     out = _run(
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -71,13 +73,18 @@ def test_cpu_auto_path_never_touches_the_kernel():
     out = _run(
         "import sys\n"
         "sys.modules['jax'] = None\n"
-        "from repro_torch.kernels.paged_attention import kernel\n"
+        "from repro_torch.kernels.flash_attention import kernel as fa\n"
+        "from repro_torch.kernels.paged_attention import kernel as pa\n"
+        "from repro_torch.kernels.rwkv6_scan import kernel as wkv\n"
         "from repro_torch.launch.serve import serve\n"
-        "r = serve(requests=3, qps=100.0, max_new=3, device='cpu',"
-        " verbose=False)\n"
-        "assert r['completed'] == 3, r\n"
-        "assert r['forward_passes'] > 0\n"
-        "assert kernel.launches == 0\n"
-        "assert kernel.build.cache_info().currsize == 0\n"
+        "for arch, backend in (('stablelm_3b', 'dense'),"
+        " ('stablelm_3b', 'paged'), ('rwkv6_1_6b', 'dense')):\n"
+        "    r = serve(arch=arch, backend=backend, requests=3, qps=100.0,"
+        " max_new=3, device='cpu', verbose=False)\n"
+        "    assert r['completed'] == 3, r\n"
+        "    assert r['forward_passes'] > 0\n"
+        "for kernel in (fa, pa, wkv):\n"
+        "    assert kernel.launches == 0\n"
+        "    assert kernel.build.cache_info().currsize == 0\n"
         "print('ok')\n")
     assert out.strip() == "ok"

@@ -80,3 +80,63 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="scales"):
         tkernel.paged_attention_mixed(args[0], args[1].to(torch.int8),
                                       args[2].to(torch.int8), *args[3:])
+
+
+# ------------------------------------------------------------------ flash
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap,dtype,tol", [
+    (1, 200, 200, 32, 32, 80, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 200, 200, 32, 32, 80, True, 0, None, torch.float32, 2e-3),
+    (2, 64, 192, 4, 1, 64, True, 0, None, torch.float32, 2e-3),
+    (1, 130, 130, 4, 4, 64, False, 0, None, torch.float32, 2e-3),
+    (1, 300, 300, 8, 2, 128, True, 128, 50.0, torch.bfloat16, 2e-2),
+    (1, 70, 70, 2, 2, 256, True, 0, None, torch.float32, 2e-3),
+])
+def test_flash_kernel_matches_plain_version(cuda_device, b, s, t, h, kv, hd,
+                                            causal, window, cap, dtype, tol):
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device, dtype)
+        for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = fkernel.launches
+    out = flash_attention(q, k, v, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    assert fkernel.launches == before + 1
+    ref = flash_attention(q, k, v, impl="ref", **kw)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------- wkv
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd,dtype,tol", [
+    (1, 300, 32, 64, torch.float32, 1e-4),
+    (8, 1, 32, 64, torch.float32, 1e-4),
+    (2, 33, 4, 32, torch.float32, 1e-4),
+    (1, 64, 4, 64, torch.bfloat16, 1e-2),
+])
+def test_wkv_kernel_matches_plain_version(cuda_device, b, s, h, hd, dtype,
+                                          tol):
+    from repro_torch.kernels.rwkv6_scan import kernel as wkernel
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    rng = np.random.default_rng(s * 10 + hd)
+    r, k, v = (rng.standard_normal((b, s, h, hd)) * 0.5 for _ in range(3))
+    w = 0.45 + 0.5 / (1 + np.exp(-rng.standard_normal((b, s, h, hd))))
+    u = rng.standard_normal((h, hd)) * 0.5
+    s0 = rng.standard_normal((b, h, hd, hd)) * 0.1
+    seq = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+           for a in (r, k, v, w)]
+    u, s0 = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+             for a in (u, s0))
+    before = wkernel.launches
+    y, sf = rwkv6_scan(*seq, u, s0, impl="kernel")
+    torch.cuda.synchronize()
+    assert wkernel.launches == before + 1
+    yr, sr = rwkv6_scan(*seq, u, s0, impl="ref")
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(sf.cpu().numpy(), sr.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)

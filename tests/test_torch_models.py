@@ -141,7 +141,7 @@ def test_dense_ffn_layer():
 
 def test_plan_matches_jax_plan():
     """Same leaf names, shapes and dtypes as the JAX plan, at full width."""
-    for arch in ("stablelm_3b", "olmo2_7b", "granite_3_8b"):
+    for arch in ("stablelm_3b", "olmo2_7b", "granite_3_8b", "rwkv6_1_6b"):
         jplan = jax_model.model_plan(get_config(arch))
         tplan = t_model.model_plan(t_get_config(arch))
         flat_j = jax.tree_util.tree_flatten_with_path(
@@ -152,6 +152,23 @@ def test_plan_matches_jax_plan():
                  l.fan_in) for p, l in flat_j] == \
             [(jax.tree_util.keystr(p), tuple(l.shape), l.dtype, l.init,
               l.fan_in) for p, l in flat_t]
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "rwkv6_1_6b"])
+def test_cache_plan_matches_jax_plan(arch):
+    """The dense decode cache: same leaves, shapes and dtypes as the JAX
+    cache plan at full width, except the RWKV shift states, which take the
+    model dtype (bf16 here, so equal too; see models/rwkv.py)."""
+    jplan = jax_model.cache_plan(get_config(arch), 8, 2048, NO_POLICY)
+    tplan = t_model.cache_plan(t_get_config(arch), 8, 2048)
+    flat_j = jax.tree_util.tree_flatten_with_path(
+        jplan, is_leaf=lambda x: hasattr(x, "shape"))[0]
+    flat_t = jax.tree_util.tree_flatten_with_path(
+        tplan, is_leaf=lambda x: hasattr(x, "shape"))[0]
+    assert [(jax.tree_util.keystr(p), tuple(l.shape), l.dtype)
+            for p, l in flat_j] == \
+        [(jax.tree_util.keystr(p), tuple(l.shape), l.dtype)
+         for p, l in flat_t]
 
 
 def test_model_init_from_generator_scales():

@@ -38,7 +38,8 @@ def engines(weights, **kw):
           "chunk_tokens": 16, "attn_impl": "ref", **kw}
     jparams, tparams = weights
     return (JaxEngine(JCFG, params=jparams, backend="paged", **kw),
-            ServingEngine(TCFG, params=tparams, device="cpu", **kw))
+            ServingEngine(TCFG, params=tparams, backend="paged", device="cpu",
+                          **kw))
 
 
 def twin_requests(specs):
@@ -261,8 +262,16 @@ def test_kv_scatter_writes_the_stacked_pool_in_place(weights):
 
 
 def test_dense_backend_and_cuda_default_refused(weights, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A4"):
-        ServingEngine(TCFG, params=weights[1], backend="dense", device="cpu")
+    """The dense backend (the default, as in the reference) constructs and
+    serves; asking for the card without one is refused."""
+    eng = ServingEngine(TCFG, params=weights[1], device="cpu")
+    assert eng.backend == "dense" and eng.runtime is None
+    req = Request(req_id=0, tenant="T1", prompt_len=9, max_new_tokens=3,
+                  arrival=0.0)
+    assert eng.submit(req)
+    reps = drain(eng)
+    assert [r.kind for r in reps] == ["prefill", "decode", "decode"]
+    assert len(req.output_tokens) == 3 and eng.logits_finite
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(TCFG, params=weights[1])

@@ -27,7 +27,7 @@ def test_serve_is_deterministic_and_serves_spec_lanes():
     b = serve(requests=3, qps=50.0, max_new=3, device="cpu", verbose=False)
     assert a["outputs"] == b["outputs"]
     c = serve(requests=3, qps=50.0, max_new=3, device="cpu", verbose=False,
-              spec_k=2, kv_dtype="int8")
+              spec_k=2, kv_dtype="int8", backend="paged")
     assert c["completed"] == 3
 
 
@@ -36,11 +36,50 @@ def test_serve_is_deterministic_and_serves_spec_lanes():
     (["--interfere"], "A5"), (["--listen"], "A5"), (["--admit", "1"], "A5"),
     (["--route", "cache"], "A5"), (["--chaos"], "A5"),
     (["--migrate"], "A5"), (["--trace"], "A5"),
-    (["--trace-out=t.json"], "A5"), (["--backend", "dense"], "A4"),
+    (["--trace-out=t.json"], "A5"),
 ])
 def test_cli_refuses_unported_flags(flags, match):
     with pytest.raises(SystemExit, match=match):
         serve_mod.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags,tag", [
+    ([], "stablelm-3b-reduced (1 layers, d_model 256, bfloat16, dense"),
+    (["--backend", "dense", "--arch", "rwkv6_1_6b"],
+     "rwkv6-1.6b-reduced (1 layers, d_model 256, bfloat16, dense"),
+    (["--backend", "paged", "--kv-dtype", "int8"], "bfloat16, paged, kv "
+     "int8"),
+])
+def test_cli_serves_each_backend_and_arch(capsys, flags, tag):
+    serve_mod.main(["--device", "cpu", "--requests", "2", "--max-new", "3",
+                    "--qps", "50", *flags])
+    out = capsys.readouterr().out
+    assert tag in out and "completed 2/2" in out
+
+
+def test_serve_keeps_a_deep_random_rwkv_stack_finite(monkeypatch):
+    """serve() with random weights (no ``params``) gives finite logits
+    through 8 RWKV-6 layers, where the plan's raw init diverges."""
+    from repro_torch.configs import base
+    shallow = base.reduced
+    monkeypatch.setattr(base, "reduced",
+                        lambda cfg: shallow(cfg).replace(repeats=8))
+    out = serve(arch="rwkv6_1_6b", requests=3, qps=50.0, prompt_len=24,
+                prompt_len_max=64, max_new=4, device="cpu", verbose=False)
+    assert out["completed"] == 3
+    assert out["logits_finite"]
+    assert out["forward_passes"] > 0
+
+
+def test_backend_refusals_match_the_reference():
+    with pytest.raises(ValueError, match="paged backend does not support "
+                                         "mixer 'rwkv6'"):
+        serve(arch="rwkv6_1_6b", backend="paged", requests=1, device="cpu",
+              verbose=False)
+    with pytest.raises(ValueError, match="spec_k"):
+        serve(requests=1, spec_k=2, device="cpu", verbose=False)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        serve(requests=1, kv_dtype="int8", device="cpu", verbose=False)
 
 
 def test_cli_serves_and_rejects_unknown_flags(capsys):
