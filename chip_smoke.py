@@ -14,19 +14,24 @@ on its own line:
    shapes the paths give it (paged attention: ragged rows, pad rows,
    poisoned pages past the lengths; flash attention: StableLM's prefill
    and the ragged, end-aligned, non-causal and windowed/softcapped GQA
-   cases; the WKV scan: RWKV-6 prefill and decode), with its time, the
-   plain version's, a one-call library yardstick's where PyTorch has one
-   and the least time the card could take;
+   cases; the WKV scan: RWKV-6 prefill and decode; the selective scan:
+   Jamba's Mamba prefill with bf16 and f32 x, a ragged S, decode and
+   two chained halves), with its time, the plain version's, a one-call
+   library yardstick's where PyTorch has one and the least time the card
+   could take;
 4. full-width models (bf16, random weights from a seeded
    ``torch.Generator``) served through ``repro_torch.launch.serve``:
    StableLM-3B on the paged engine (bf16, then int8 page pools), then
-   StableLM-3B and RWKV-6 1.6B on the dense slot-cache engine; every
-   request must complete with finite logits, and every forward pass must
-   go through the path's kernel (the counts are zeroed before each run);
+   StableLM-3B, RWKV-6 1.6B and Jamba v0.1 (its published widths, depth
+   cut to two repeats of its 8-layer period, 16 layers) on the dense
+   slot-cache engine; every request must complete with finite logits, and
+   every pass must go through each of the path's kernels once per layer
+   of the kernel's mixer (the counts are zeroed before each run);
 5. engine parity on the card: full width, depth cut to 2 layers, float32
    (TF32 off), identical tokens for the paged and dense StableLM engines
    with kernels against plain versions, dense against paged, and the
-   RWKV-6 dense engine with the kernel against the plain version.
+   RWKV-6 and Jamba (one Mamba + MoE layer and the attention layer) dense
+   engines with the kernels against the plain versions.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -35,6 +40,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import subprocess
@@ -86,8 +92,10 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
     return {"paged_attention_mixed": pa_kernel,
-            "flash_attention": fa_kernel, "rwkv6_scan": wkv_kernel}
+            "flash_attention": fa_kernel, "rwkv6_scan": wkv_kernel,
+            "selective_scan": scan_kernel}
 
 
 def zero_counts() -> None:
@@ -472,27 +480,163 @@ def check_wkv(torch) -> list:
     return results
 
 
+def scan_inputs(torch, b, s, d, n, x_dtype, seed, with_h0=True):
+    """x/delta/a/b/c/d (and h0) as the kernel tests draw them: delta in
+    (0, ~0.3), A negative, B/C/x of spread 0.5; everything but x f32, as
+    ``models/ssm.py::_ssm_coeffs`` hands them over."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, s, d)) * 0.5,
+              np.abs(rng.standard_normal((b, s, d))) * 0.1,
+              -np.abs(rng.standard_normal((d, n))) - 0.1,
+              rng.standard_normal((b, s, n)) * 0.5,
+              rng.standard_normal((b, s, n)) * 0.5,
+              rng.standard_normal((d,))]
+    if with_h0:
+        arrays.append(rng.standard_normal((b, d, n)) * 0.1)
+    out = [torch.from_numpy(a.astype(np.float32)).to("cuda")
+           for a in arrays]
+    out[0] = out[0].to(x_dtype)
+    return out
+
+
+# special-function-unit exponentials per clock per SM on sm_90 (CUDA C++
+# programming guide's throughput table) and the H100 SXM's boost clock
+SFU_PER_CLK_SM, SM_COUNT, BOOST_HZ = 16, 132, 1.98e9
+
+
+def scan_bound(torch, x, n, with_h0):
+    """Least time for one call: x, delta, A, B, C, D (and h0, when one is
+    given) read once, y and the final state written once, against the f32
+    operations the function needs: per (step, channel, state) delta*A,
+    its exponential, dx*B_n, the state's multiply-add (2) and C_n*h's
+    multiply-add (2); per (step, channel) delta*x and D*x + the sum (3).
+    The inputs but x are f32 and so is the arithmetic, so the f32 rate
+    applies whatever x's type.  Also returns the exponentials' time on the
+    special-function units alone, a floor the data sheet's rates miss."""
+    b, s, d = x.shape
+    es = x.element_size()
+    nbytes = (2 * b * s * d * es + b * s * d * 4 + d * n * 4
+              + 2 * b * s * n * 4 + d * 4 + b * d * n * 4 * (2 if with_h0
+                                                           else 1))
+    ops = b * s * d * (7 * n + 3)
+    exp_ms = b * s * d * n / (SFU_PER_CLK_SM * SM_COUNT * BOOST_HZ) * 1e3
+    return least_time(torch, nbytes, ops, torch.float32) + (exp_ms,)
+
+
+def check_scan(torch) -> list:
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    def chained(fn, x, dt, a, bm, cm, dd, h0):
+        """The scan over S as two halves chained through the state."""
+        h = x.shape[1] // 2
+        y1, h1 = fn(x[:, :h].contiguous(), dt[:, :h].contiguous(), a,
+                    bm[:, :h].contiguous(), cm[:, :h].contiguous(), dd, h0)
+        y2, h2 = fn(x[:, h:].contiguous(), dt[:, h:].contiguous(), a,
+                    bm[:, h:].contiguous(), cm[:, h:].contiguous(), dd, h1)
+        return torch.cat([y1, y2], 1), h2
+
+    # name, B, S, D, N, x dtype, h0, y tolerance (the state is held to
+    # 1e-4); bf16 y leaves the kernel rounded, one bf16 ulp is 2^-8 of |y|
+    cases = [("jamba prefill x bf16", 1, 1024, 8192, 16, torch.bfloat16,
+              False, 1e-2),
+             ("jamba prefill x f32", 1, 1024, 8192, 16, torch.float32,
+              False, 1e-4),
+             ("ragged S=1000 x f32", 1, 1000, 8192, 16, torch.float32, True,
+              1e-4),
+             ("decode B=8 S=1 x bf16", 8, 1, 8192, 16, torch.bfloat16, True,
+              1e-2),
+             ("two chained halves of S=1024 x f32", 1, 1024, 8192, 16,
+              torch.float32, True, 1e-4)]
+    results = []
+    for name, b, s, d, n, dt, with_h0, tol in cases:
+        args = scan_inputs(torch, b, s, d, n, dt, seed=s + b,
+                           with_h0=with_h0)
+        kernel_fn, plain_fn = scan_kernel.selective_scan, selective_scan_ref
+        extra = ""
+        if name.startswith("two chained"):
+            whole_y, whole_h = kernel_fn(*args)
+            kernel_fn = functools.partial(chained, kernel_fn)
+            plain_fn = functools.partial(chained, plain_fn)
+        y, hf = kernel_fn(*args)
+        torch.cuda.synchronize()
+        yr, hr = plain_fn(*args)
+        err = float((y.float() - yr.float()).abs().max())
+        h_err = float((hf - hr).abs().max())
+        ok = (bool(torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol))
+              and bool(torch.allclose(hf, hr, rtol=1e-4, atol=1e-4)))
+        if name.startswith("two chained"):
+            # the chained halves against one call over the whole sequence
+            c_err = max(float((y - whole_y).abs().max()),
+                        float((hf - whole_h).abs().max()))
+            ok = ok and bool(torch.allclose(y, whole_y, rtol=1e-4,
+                                            atol=1e-4)) and bool(
+                torch.allclose(hf, whole_h, rtol=1e-4, atol=1e-4))
+            extra = f", chained vs one call {c_err:.3g} (tol 1e-4)"
+            del whole_y, whole_h
+        ms = cuda_ms(torch, lambda: kernel_fn(*args))
+        plain_ms = cuda_ms(torch, lambda: plain_fn(*args), iters=3,
+                           warmup=1)
+        bound_ms, bound_by, nbytes, ops, exp_ms = scan_bound(
+            torch, args[0], n, with_h0)
+        res = {"case": name, "shape": {"B": b, "S": s, "D": d, "N": n},
+               "x_dtype": str(dt).replace("torch.", ""), "h0": with_h0,
+               "max_abs_err": max(err, h_err), "y_err": err,
+               "state_err": h_err, "tol": tol, "ok": ok, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ops": ops, "sfu_exp_ms": exp_ms}
+        results.append(res)
+        log(f"[3/5] selective_scan {name}: B={b} S={s} D={d} N={n}: "
+            f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
+            f"{h_err:.3g} (rtol = atol = 1e-4){extra}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} "
+            f"ms ({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop; "
+            f"the exponentials alone on the SFUs {exp_ms:.4f} ms)")
+        if not ok:
+            raise AssertionError(f"selective scan kernel disagrees with its "
+                                 f"plain version on {name}: y {err}, state "
+                                 f"{h_err}")
+        del args, y, hf, yr, hr
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------------ phase 4
-# tag, arch, backend, the path's kernel, serve options
+# tag, arch, backend, the path's kernels, serve options
 SERVE_RUNS = (
     ("stablelm_3b paged bf16", "stablelm_3b", "paged",
-     "paged_attention_mixed", dict(requests=8, max_new=32)),
+     ("paged_attention_mixed",), dict(requests=8, max_new=32)),
     ("stablelm_3b paged int8", "stablelm_3b", "paged",
-     "paged_attention_mixed", dict(requests=4, max_new=8, kv_dtype="int8")),
-    ("stablelm_3b dense bf16", "stablelm_3b", "dense", "flash_attention",
+     ("paged_attention_mixed",), dict(requests=4, max_new=8,
+                                      kv_dtype="int8")),
+    ("stablelm_3b dense bf16", "stablelm_3b", "dense", ("flash_attention",),
      dict(requests=8, max_new=32)),
-    ("rwkv6_1_6b dense bf16", "rwkv6_1_6b", "dense", "rwkv6_scan",
+    ("rwkv6_1_6b dense bf16", "rwkv6_1_6b", "dense", ("rwkv6_scan",),
      dict(requests=8, max_new=32)),
+    ("jamba_v0_1_52b dense bf16", "jamba_v0_1_52b", "dense",
+     ("selective_scan", "flash_attention"),
+     dict(requests=8, max_new=32, repeats=2)),
 )
+# per kernel: the mixer whose layers launch it, and the passes that do
+# (flash runs in prefill only; the others in every forward pass)
+KERNEL_PATH = {"paged_attention_mixed": ("attn", "forward_passes"),
+               "flash_attention": ("attn", "prefill_passes"),
+               "rwkv6_scan": ("rwkv6", "forward_passes"),
+               "selective_scan": ("mamba", "forward_passes")}
 
 
 def serve_full_width(torch) -> dict:
     from repro_torch.configs.base import get_config
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import serve, with_repeats
 
     runs = {}
-    for tag, arch, backend, kname, kw in SERVE_RUNS:
-        layers = get_config(arch).num_layers
+    for tag, arch, backend, knames, kw in SERVE_RUNS:
+        cfg = get_config(arch)
+        if "repeats" in kw:
+            cfg = with_repeats(cfg, kw["repeats"])
+        mixers = [layer.mixer for layer in cfg.layer_specs()]
         gc.collect()
         torch.cuda.empty_cache()
         zero_counts()
@@ -502,31 +646,34 @@ def serve_full_width(torch) -> dict:
                     seq_cap=2048, seed=0, device="cuda", **kw)
         wall = time.perf_counter() - t0
         counts = read_counts()
-        launches = counts[kname]
-        # flash runs once per layer of a prefill pass; the paged kernel
-        # and the WKV scan once per layer of every pass
-        passes = (out["prefill_passes"] if kname == "flash_attention"
-                  else out["forward_passes"])
         out.pop("outputs")
-        out.update(kernel=kname, launches=launches, counts=counts,
-                   wall_s=wall)
+        checks = {}
+        for kname in knames:
+            mixer, passes_key = KERNEL_PATH[kname]
+            checks[kname] = (counts[kname], out[passes_key],
+                             mixers.count(mixer), passes_key.split("_")[0])
+        out.update(kernels=list(knames), launches=dict(
+            (k, c[0]) for k, c in checks.items()), counts=counts,
+            wall_s=wall)
         runs[tag] = out
-        log(f"[4/5] serve {tag} full width: completed "
-            f"{out['completed']}/{out['offered']}, {out['steps']} steps, "
-            f"TTFT p50 {out['ttft_p50_ms']:.2f} ms p99 "
+        launched = ", ".join(
+            f"{k} launches {n} ({p} {kind} passes x {lay} {KERNEL_PATH[k][0]}"
+            f" layers)" for k, (n, p, lay, kind) in checks.items())
+        log(f"[4/5] serve {tag} full width ({out['layers']} layers): "
+            f"completed {out['completed']}/{out['offered']}, {out['steps']} "
+            f"steps, TTFT p50 {out['ttft_p50_ms']:.2f} ms p99 "
             f"{out['ttft_p99_ms']:.2f} ms, ITL p50 {out['itl_p50_ms']:.2f} "
             f"ms p99 {out['itl_p99_ms']:.2f} ms, {out['tokens_per_s']:.1f} "
             f"tokens/s, peak memory {out['peak_mem_bytes'] / 2**30:.2f} "
-            f"GiB, {kname} launches {launches} ({passes} "
-            f"{'prefill' if kname == 'flash_attention' else 'forward'} "
-            f"passes x {layers} layers), wall {wall:.1f} s")
+            f"GiB, {launched}, wall {wall:.1f} s")
         if out["completed"] != out["offered"]:
             raise AssertionError(f"{tag}: not every request completed")
         if not out["logits_finite"]:
             raise AssertionError(f"{tag}: non-finite logits")
-        if launches == 0 or launches != passes * layers:
-            raise AssertionError(f"{tag}: {launches} {kname} launches for "
-                                 f"{passes} passes x {layers} layers")
+        for kname, (n, passes, layers, _) in checks.items():
+            if n == 0 or n != passes * layers:
+                raise AssertionError(f"{tag}: {n} {kname} launches for "
+                                     f"{passes} passes x {layers} layers")
     return runs
 
 
@@ -617,6 +764,27 @@ def engine_parity(torch) -> dict:
         f"requests, {rk[2]['rwkv6_scan']} scan launches, identical={same}")
     checks["rwkv6 dense kernel vs plain"] = same
     out["rwkv6_1_6b"] = {"identical": same, "tokens": rr[0]}
+    # Jamba: one Mamba + MoE layer and the attention layer of its period
+    jamba = get_config("jamba_v0_1_52b")
+    cfg = jamba.replace(period=(jamba.period[1], jamba.period[4]),
+                        repeats=1, dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = Model(cfg, seed=3, device="cuda").params
+    jk = serve_trace(torch, cfg, params, "dense", "auto")
+    jr = serve_trace(torch, cfg, params, "dense", "ref")
+    del params
+    same = jk[0] == jr[0]
+    launched = (launched and jk[2]["selective_scan"] > 0
+                and jk[2]["flash_attention"] > 0
+                and not any(jr[2].values()))
+    log(f"[5/5] engine parity, jamba_v0_1_52b full width, period cut to "
+        f"(mamba+moe, attn+dense), float32 ({tf32}): dense kernel vs "
+        f"plain, {sum(len(o) for o in jr[0])} tokens over "
+        f"{len(PARITY_TRACE)} requests, {jk[2]['selective_scan']} scan and "
+        f"{jk[2]['flash_attention']} flash launches, identical={same}")
+    checks["jamba dense kernel vs plain"] = same
+    out["jamba_v0_1_52b"] = {"identical": same, "tokens": jr[0]}
     if not launched:
         raise AssertionError("a parity run's kernel route did not launch "
                              "its kernel, or a plain run did")
@@ -641,6 +809,7 @@ def main() -> int:
     report["kernels"] = check_kernels(torch)
     report["kernels"]["flash_attention"] = check_flash(torch)
     report["kernels"]["rwkv6_scan"] = check_wkv(torch)
+    report["kernels"]["selective_scan"] = check_scan(torch)
     report["serve"] = serve_full_width(torch)
     report["parity"] = engine_parity(torch)
     report["total_s"] = time.perf_counter() - t0
@@ -666,6 +835,10 @@ def main() -> int:
             "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
             "src/repro/kernels/rwkv6_scan/kernel.py:54",
             "rwkv6_1_6b dense bf16"),
+        "selective_scan": (
+            "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+            "src/repro/kernels/selective_scan/kernel.py:58",
+            "jamba_v0_1_52b dense bf16"),
     }
     summary = {"kernels": []}
     for name, (source, replaces, run) in meta.items():
@@ -674,7 +847,7 @@ def main() -> int:
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": report["serve"][run]["launches"],
+            "launches": report["serve"][run]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

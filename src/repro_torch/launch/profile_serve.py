@@ -2,8 +2,9 @@
 under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch stablelm_3b|rwkv6_1_6b] [--backend dense|paged] \
-        [--requests 8] [--kv-dtype int8] [--out chiprun_out/profile.json]
+        [--arch stablelm_3b|rwkv6_1_6b|jamba_v0_1_52b] [--repeats 2] \
+        [--backend dense|paged] [--requests 8] [--kv-dtype int8] \
+        [--out profile.json]
 
 Submits ``requests`` prompts of 64..1024 tokens at once to a warmed engine
 (kernel build, library warm-up) and drains them twice, each time on a
@@ -30,6 +31,7 @@ import torch
 _FAMILIES = (("paged_attention", ("paged_attention",)),
              ("flash_attention", ("flash_attention",)),
              ("rwkv6_scan", ("rwkv6_scan",)),
+             ("selective_scan", ("selective_scan",)),
              ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
              ("index/scatter", ("index", "scatter", "gather")),
              ("reduce", ("reduce", "norm")))
@@ -65,16 +67,21 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--kv-dtype", choices=("auto", "int8"), default="auto")
+    ap.add_argument("--repeats", type=int, default=None,
+                    help="cut the depth to this many repeats of the "
+                         "config's layer period (full width)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
     from repro_torch.configs.base import get_config
-    from repro_torch.launch.serve import warm_engine
+    from repro_torch.launch.serve import warm_engine, with_repeats
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
 
     cfg = get_config(args.arch)
+    if args.repeats is not None:
+        cfg = with_repeats(cfg, args.repeats)
     params = None
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, int(n))
@@ -132,6 +139,7 @@ def main(argv=None):
                if intervals else 0.0)
     out = {
         "device": torch.cuda.get_device_name(0), "arch": args.arch,
+        "layers": cfg.num_layers,
         "backend": args.backend, "kv_dtype": args.kv_dtype, "steps": steps,
         "unprofiled_steps_compute_s": plain_compute_s,
         "host_wall_s": wall, "steps_compute_s": compute_s,

@@ -3,6 +3,7 @@ PyTorch twin of the single-tenant core of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 \
         --device cuda [--full-width] [--arch rwkv6_1_6b] \
+        [--arch jamba_v0_1_52b --repeats 2] \
         [--backend paged [--kv-dtype int8] [--spec-k 3]]
 
 Seeded Poisson arrivals at ``qps`` reach one ``ServingEngine``; after a
@@ -13,7 +14,10 @@ step's measured ``compute_s``.  The backend is the dense slot cache unless
 per-tenant template (two thirds of the shortest prompt, page-aligned) plus
 a random tail; dense prompts are left to the engine, which draws them from
 its seeded generator, as in the reference.  It serves
-``reduced(get_config(arch))`` unless ``reduce=False`` (``--full-width``).
+``reduced(get_config(arch))`` unless ``reduce=False`` (``--full-width``);
+``repeats`` (``--repeats``) then cuts the depth to that many repeats of
+the config's layer period, so that a model larger than one card (Jamba's
+published 4 x 8 layers) serves at its published widths.
 
 The reference's multi-tenant, multi-replica harness (gateway, router,
 controller, admission, interference, chaos, migration, tracing) is not
@@ -38,6 +42,16 @@ _REFUSED_FLAGS = ("--interfere", "--admit", "--listen", "--door-queue",
                   "--unique-prompts")
 
 
+def with_repeats(cfg, repeats: int):
+    """``cfg`` cut (or grown) to ``repeats`` repeats of its layer period:
+    a depth cut of a config, its widths untouched."""
+    if not cfg.period:
+        raise ValueError(f"{cfg.name} has no layer period to repeat")
+    if repeats < 1:
+        raise ValueError(f"repeats must be >= 1, got {repeats}")
+    return cfg.replace(repeats=repeats)
+
+
 def warm_engine(eng, name: str, prompt_len: int) -> None:
     """Run one throw-away request through ``eng`` (kernel build, allocator
     and library warm-up), then reset the engine's metrics so the warm
@@ -57,14 +71,15 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
           slots: int = 4, seq_cap: int = 128, seed: int = 0,
           verbose: bool = True, kv_dtype: str = "auto",
           prefix_cache: bool = True, spec_k: int = 0, reduce: bool = True,
-          backend: str = "dense", params=None, device="cuda"):
+          backend: str = "dense", params=None, repeats: int = None,
+          device="cuda"):
     """Virtual-time single-tenant serving run; returns its stats.
 
     Prompt lengths are ``prompt_len``, or drawn uniformly from
     ``[prompt_len, prompt_len_max]`` when that is given.  ``params`` are
     the weights to serve (a nested dict of tensors with the plan's names,
-    for the config ``arch`` and ``reduce`` select); ``None`` draws random
-    ones from ``seed``."""
+    for the config ``arch``, ``reduce`` and ``repeats`` select); ``None``
+    draws random ones from ``seed``."""
     import torch
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.device import resolve_device
@@ -75,6 +90,8 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     cfg = get_config(arch)
     if reduce:
         cfg = reduced(cfg)
+    if repeats is not None:
+        cfg = with_repeats(cfg, repeats)
     name = "T1"
     paged = backend == "paged"
     eng = ServingEngine(cfg, params, max_slots=slots, seq_cap=seq_cap,
@@ -147,6 +164,7 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
 
     out = {
         "completed": len(done), "offered": len(reqs),
+        "layers": cfg.num_layers,
         "rejected": len(rejected), "steps": steps,
         "backend": backend, "forward_passes": eng.forward_passes,
         "prefill_passes": eng.prefill_passes,
@@ -191,6 +209,9 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=0)
     ap.add_argument("--full-width", action="store_true",
                     help="serve the published config instead of reduced()")
+    ap.add_argument("--repeats", type=int, default=None,
+                    help="cut the depth to this many repeats of the "
+                         "config's layer period")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", choices=("dense", "paged"), default="dense",
@@ -220,7 +241,7 @@ def main(argv=None):
           seed=args.seed, kv_dtype=args.kv_dtype,
           prefix_cache=not args.no_prefix_cache, spec_k=args.spec_k,
           reduce=not args.full_width, backend=args.backend,
-          device=args.device)
+          repeats=args.repeats, device=args.device)
 
 
 if __name__ == "__main__":

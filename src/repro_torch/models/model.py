@@ -1,7 +1,8 @@
-"""Model assembly for decoder stacks of GQA attention + dense FFN layers and
-RWKV-6 layers: the PyTorch twin of the parts of ``repro/models/model.py``
-that serving runs (``prefill`` and ``decode_step`` for the dense slot-cache
-backend; the paged runtime uses the layer pieces).
+"""Model assembly for decoder stacks of GQA attention and Mamba mixers with
+dense or MoE FFNs, and of RWKV-6 layers: the PyTorch twin of the parts of
+``repro/models/model.py`` that serving runs (``prefill`` and
+``decode_step`` for the dense slot-cache backend; the paged runtime uses
+the layer pieces).
 
 Parameters keep the JAX plan's names and layouts (``wq [d,H,hd]``,
 ``w_in [d,2,ff]``, period leaves stacked ``[repeats, ...]``), so the weight
@@ -9,8 +10,9 @@ bridge is a name-for-name copy and the einsums carry over one to one.  The
 period runs as a Python loop over per-repeat views of the stacked
 parameters and caches, where the JAX package runs ``lax.scan``;
 ``decode_step`` writes each layer's cache IN PLACE through those views
-(the JAX code returns a new cache).  MoE, Mamba, cross-attention and
-frontends are later slices.
+(the JAX code returns a new cache).  The MoE load-balance loss is computed
+and dropped, as serving drops it.  MLA, cross-attention, encoders and
+frontends are later slices (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import einsum, gated_ffn, rms_norm, softcap
 from repro_torch.models.params import P, init_from_plan, map_plan, torch_dtype
 
@@ -39,22 +43,36 @@ def dense_ffn_plan(cfg: ModelConfig, spec) -> dict:
     }
 
 
+def _ported(layer: LayerSpec) -> bool:
+    if layer.cross_attn:
+        return False
+    if layer.mixer == "rwkv6":
+        return layer.ffn == "rwkv_cm"
+    return layer.mixer in ("attn", "mamba") and layer.ffn in (
+        "dense", "moe", "none")
+
+
 def layer_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
-    if layer.cross_attn or (layer.mixer, layer.ffn) not in (
-            ("attn", "dense"), ("attn", "none"), ("rwkv6", "rwkv_cm")):
+    if not _ported(layer):
         raise NotImplementedError(
-            f"layer {layer} is not ported yet (attention + dense FFN and "
-            f"RWKV-6 only)")
+            f"layer {layer} is not ported yet (attention or Mamba with a "
+            f"dense or MoE FFN, and RWKV-6; ROADMAP A6)")
     d = cfg.d_model
     plan: Dict[str, Any] = {"norm1": P((d,), dtype="float32", init="zeros")}
     if layer.mixer == "attn":
         plan["attn"] = attn_mod.attention_plan(cfg, layer)
+    elif layer.mixer == "mamba":
+        plan["mamba"] = ssm_mod.mamba_plan(cfg)
     else:
         # rwkv channel-mix params live inside the rwkv plan
         plan["rwkv"] = rwkv_mod.rwkv_plan(cfg)
-    if layer.ffn == "dense":
+    if layer.ffn in ("dense", "moe"):
         plan["norm2"] = P((d,), dtype="float32", init="zeros")
-        plan["ffn"] = dense_ffn_plan(cfg, cfg.ffn_spec_for(layer))
+        fspec = cfg.ffn_spec_for(layer)
+        if layer.ffn == "moe":
+            plan["moe"] = moe_mod.moe_plan(cfg, fspec)
+        else:
+            plan["ffn"] = dense_ffn_plan(cfg, fspec)
     return plan
 
 
@@ -90,9 +108,12 @@ def layer_cache_plan(cfg: ModelConfig, layer: LayerSpec, batch: int,
                      seq_cap: int) -> dict:
     if layer.mixer == "attn":
         return {"self": attn_mod.attn_cache_plan(cfg, layer, batch, seq_cap)}
+    if layer.mixer == "mamba":
+        return {"self": ssm_mod.mamba_state_plan(cfg, batch)}
     if layer.mixer == "rwkv6":
         return {"self": rwkv_mod.rwkv_state_plan(cfg, batch)}
-    raise NotImplementedError(f"mixer {layer.mixer!r} is not ported yet")
+    raise NotImplementedError(
+        f"mixer {layer.mixer!r} is not ported yet (ROADMAP A6)")
 
 
 def cache_plan(cfg: ModelConfig, batch: int, seq_cap: int) -> dict:
@@ -141,14 +162,18 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
-    """Residual dense gated FFN (``layer.ffn == "none"`` passes through;
-    the RWKV channel-mix runs inside the rwkv6 layer, as in JAX)."""
+    """Residual dense gated FFN or MoE (``layer.ffn == "none"`` passes
+    through; the RWKV channel-mix runs inside the rwkv6 layer, as in JAX)."""
     if layer.ffn == "none":
         return h
-    if layer.ffn != "dense":
-        raise NotImplementedError(f"ffn {layer.ffn!r} is not ported yet")
+    if layer.ffn not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"ffn {layer.ffn!r} is not ported yet (ROADMAP A6)")
     x = rms_norm(h, lp["norm2"], cfg.norm_eps)
     fspec = cfg.ffn_spec_for(layer)
+    if layer.ffn == "moe":
+        out, _ = moe_mod.moe_ffn(lp["moe"], x, fspec, cfg)
+        return h + out
     return h + gated_ffn(x, lp["ffn"]["w_in"], lp["ffn"]["w_out"],
                          fspec.activation)
 
@@ -169,8 +194,12 @@ def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
         cache = {"self": attn_mod.build_gqa_cache(k, v, positions, layer,
                                                   seq_cap)}
         return _apply_ffn(lp, h + out, layer, cfg), cache
+    if layer.mixer == "mamba":
+        out, state = ssm_mod.mamba_prefill(lp["mamba"], xin, cfg, impl=impl)
+        return _apply_ffn(lp, h + out, layer, cfg), {"self": state}
     if layer.mixer != "rwkv6":
-        raise NotImplementedError(f"mixer {layer.mixer!r} is not ported yet")
+        raise NotImplementedError(
+            f"mixer {layer.mixer!r} is not ported yet (ROADMAP A6)")
     b, d = h.shape[0], h.shape[-1]
     heads, hd = rwkv_mod._dims(cfg)
     zeros = torch.zeros((b, d), dtype=h.dtype, device=h.device)
@@ -195,8 +224,13 @@ def apply_layer_decode(lp, h, layer: LayerSpec, cfg: ModelConfig, positions,
         out = attn_mod.gqa_decode(lp["attn"], xin, cache["self"], positions,
                                   layer, cfg)
         return _apply_ffn(lp, h + out, layer, cfg)
+    if layer.mixer == "mamba":
+        out = ssm_mod.mamba_decode(lp["mamba"], xin, cache["self"], cfg,
+                                   impl=impl)
+        return _apply_ffn(lp, h + out, layer, cfg)
     if layer.mixer != "rwkv6":
-        raise NotImplementedError(f"mixer {layer.mixer!r} is not ported yet")
+        raise NotImplementedError(
+            f"mixer {layer.mixer!r} is not ported yet (ROADMAP A6)")
     st = cache["self"]
     out, (new_shift, new_wkv) = rwkv_mod.rwkv_time_mix(
         lp["rwkv"], xin, st["shift_att"], st["wkv"], cfg, impl=impl)

@@ -44,6 +44,9 @@ def plan_leaves(plan):
     return [plan]
 
 
+_DRAW_SLICE = 1 << 26        # elements of one f32 draw (256 MB)
+
+
 def _init_leaf(gen: torch.Generator, p: P, device) -> torch.Tensor:
     dtype = torch_dtype(p.dtype)
     if p.init == "zeros":
@@ -57,8 +60,17 @@ def _init_leaf(gen: torch.Generator, p: P, device) -> torch.Tensor:
         return a.expand(p.shape).to(dtype).contiguous()
     fan_in = p.fan_in if p.fan_in is not None else (p.shape[0] if p.shape else 1)
     scale = 0.02 if p.init == "small" else 1.0 / np.sqrt(max(fan_in, 1))
-    x = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    out = torch.empty(p.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    # a large leaf is drawn in slices of the flattened leaf, so the f32
+    # draw beside the weights already placed stays at most _DRAW_SLICE
+    # elements (a stacked full-width MoE ``wi`` would otherwise need a
+    # temporary twice its own bf16 size)
+    for lo in range(0, flat.numel(), _DRAW_SLICE):
+        n = min(_DRAW_SLICE, flat.numel() - lo)
+        x = torch.randn(n, generator=gen, dtype=torch.float32, device=device)
+        flat[lo: lo + n] = x.mul_(scale)
+    return out
 
 
 def init_from_plan(plan, generator: torch.Generator, device="cuda"):

@@ -2,16 +2,19 @@
 float32 reduced weights (bridged from JAX), the same traces, on the CPU.
 
 Greedy output must be token-identical for reduced StableLM-3B (flash
-prefill, slot-cache decode) and reduced RWKV-6 1.6B (the WKV scan in
-prefill and decode), including prompts the engines draw themselves; the
+prefill, slot-cache decode), reduced RWKV-6 1.6B (the WKV scan in
+prefill and decode) and Jamba's whole 8-layer period at reduced widths
+(Mamba through the selective scan, MoE with capacity drops in prefill,
+one attention layer), including prompts the engines draw themselves; the
 port's dense and paged backends must agree token for token; admission
 (``POOL_EXHAUSTED``), ``drain_requests`` and the refusals match.
 
-The JAX dense engine cannot decode RWKV-6 in float32 as it stands: its
-state plan keeps the token-shift states in bfloat16 and its decode step
-refuses to write float32 into them.  The port keeps them in the model
-dtype (the same for every bf16 config), and these tests give the JAX
-engine the same plan in-process (``jax_rwkv_f32_shift``)."""
+The JAX dense engine cannot decode RWKV-6 or Mamba in float32 as it
+stands: its state plans keep RWKV's token-shift states and Mamba's conv
+tail in bfloat16, and its decode step refuses to write float32 into them.
+The port keeps them in the model dtype (the same for every bf16 config),
+and these tests give the JAX engine the same plans in-process
+(``jax_rwkv_f32_shift``, ``jax_mamba_f32_conv``)."""
 import jax
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 
 from repro.configs.base import get_config, reduced
 from repro.models import rwkv as jax_rwkv
+from repro.models import ssm as jax_ssm
 from repro.models.model import Model as JaxModel
 from repro.models.params import P as JaxP
 from repro.serving.engine import ServingEngine as JaxEngine
@@ -27,6 +31,8 @@ from repro_torch.configs.base import get_config as t_get_config
 from repro_torch.configs.base import reduced as t_reduced
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+from repro_torch.kernels.selective_scan import kernel as scan_kernel
+from repro_torch.models import moe as t_moe
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.request import POOL_EXHAUSTED, Request
@@ -55,6 +61,31 @@ def rwkv():
     jparams = JaxModel(jcfg).init(jax.random.key(1))
     return jcfg, tcfg, jparams, params_from_numpy(
         jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jamba():
+    """Reduced Jamba with its whole published 8-layer period (``reduced``
+    keeps only its first two layers, both Mamba), in float32."""
+    period = get_config("jamba_v0_1_52b").period
+    jcfg, tcfg = _cfgs("jamba_v0_1_52b")
+    jcfg, tcfg = jcfg.replace(period=period), tcfg.replace(period=period)
+    jparams = JaxModel(jcfg).init(jax.random.key(2))
+    return jcfg, tcfg, jparams, params_from_numpy(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+@pytest.fixture
+def jax_mamba_f32_conv(monkeypatch):
+    """The JAX Mamba state plan with the conv tail in the model dtype."""
+    orig = jax_ssm.mamba_state_plan
+
+    def plan(cfg, batch, policy):
+        p = orig(cfg, batch, policy)
+        conv = p["conv"]
+        return {**p, "conv": JaxP(conv.shape, dtype=cfg.dtype,
+                                  init=conv.init, pspec=conv.pspec)}
+    monkeypatch.setattr(jax_ssm, "mamba_state_plan", plan)
 
 
 @pytest.fixture
@@ -150,6 +181,43 @@ def test_rwkv_dense_token_parity(rwkv, jax_rwkv_f32_shift, drawn):
     assert_same_tokens(jreqs, treqs)
     assert [r.kind for r in treps] == [r.kind for r in jreps]
     assert wkv_kernel.launches == before
+    assert teng.logits_finite
+    assert_no_leaks(teng)
+
+
+def test_jamba_dense_token_parity(jamba, jax_mamba_f32_conv, monkeypatch):
+    """Jamba's period (7 Mamba layers, 4 MoE, 1 attention) through both
+    dense engines.  The 90-token prompt overflows an expert's capacity in
+    prefill (counted from the port's router), so dropped pairs must be
+    the same pairs in both."""
+    jcfg, tcfg, _, _ = jamba
+    assert [l.mixer for l in tcfg.layer_specs()].count("mamba") == 7
+    assert [l.ffn for l in tcfg.layer_specs()].count("moe") == 4
+    over = []
+    moe_ffn = t_moe.moe_ffn
+
+    def counting(params, x, spec, cfg):
+        tokens = x.reshape(-1, x.shape[-1])
+        _, _, idx = t_moe.route(params, tokens, spec)
+        load = torch.bincount(idx.reshape(-1), minlength=spec.num_experts)
+        cap = t_moe._capacity(tokens.shape[0], spec)
+        over.append(int((load - cap).clamp(min=0).sum()))
+        return moe_ffn(params, x, spec, cfg)
+    monkeypatch.setattr(t_moe, "moe_ffn", counting)
+    rng = np.random.default_rng(2)
+    trace = TRACE + [(90, 3)]
+    specs = [(i, rng.integers(0, 1024, n), n, mn)
+             for i, (n, mn) in enumerate(trace)]
+    jeng, teng = engines(jamba)
+    st = teng.cache["period"]["sub0"]["self"]
+    assert st["conv"].dtype == torch.float32
+    assert st["ssm"].shape == (1, 4, 512, 8)
+    before = (scan_kernel.launches, flash_kernel.launches)
+    jreqs, treqs, jreps, treps = run_both(jeng, teng, specs)
+    assert_same_tokens(jreqs, treqs)
+    assert [r.kind for r in treps] == [r.kind for r in jreps]
+    assert (scan_kernel.launches, flash_kernel.launches) == before
+    assert sum(over) > 0, "no prefill overflowed an expert's capacity"
     assert teng.logits_finite
     assert_no_leaks(teng)
 

@@ -140,3 +140,84 @@ def test_wkv_kernel_matches_plain_version(cuda_device, b, s, h, hd, dtype,
                                yr.float().cpu().numpy(), rtol=tol, atol=tol)
     np.testing.assert_allclose(sf.cpu().numpy(), sr.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ selective scan
+def _scan_inputs(seed, b, s, d, n, x_dtype, device):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((b, s, d)) * 0.5,
+              np.abs(rng.standard_normal((b, s, d))) * 0.1,
+              -np.abs(rng.standard_normal((d, n))) - 0.1,
+              rng.standard_normal((b, s, n)) * 0.5,
+              rng.standard_normal((b, s, n)) * 0.5,
+              rng.standard_normal((d,)),
+              rng.standard_normal((b, d, n)) * 0.1)
+    out = [torch.from_numpy(a.astype(np.float32)).to(device)
+           for a in arrays]
+    out[0] = out[0].to(x_dtype)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,dtype,tol", [
+    (1, 300, 8192, 16, torch.float32, 1e-4),
+    (8, 1, 8192, 16, torch.float32, 1e-4),
+    (2, 37, 100, 8, torch.float32, 1e-4),     # ragged S, D off the block
+    (1, 70, 256, 40, torch.float32, 1e-4),    # the wide-state build
+    (1, 130, 512, 16, torch.bfloat16, 1e-2),  # y rounded to bf16
+])
+def test_scan_kernel_matches_plain_version(cuda_device, b, s, d, n, dtype,
+                                           tol):
+    from repro_torch.kernels.selective_scan import kernel as skernel
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    args = _scan_inputs(s * 10 + n, b, s, d, n, dtype, cuda_device)
+    before = skernel.launches
+    y, hf = selective_scan(*args, impl="kernel")
+    torch.cuda.synchronize()
+    assert skernel.launches == before + 1
+    assert y.dtype == dtype and hf.dtype == torch.float32
+    yr, hr = selective_scan(*args, impl="ref")
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(hf.cpu().numpy(), hr.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_chained_halves_and_zero_state(cuda_device):
+    """Two halves chained through the state give one call's y and state;
+    ``h0=None`` starts from zeros."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    x, dt, a, bm, cm, dd, _ = _scan_inputs(5, 2, 96, 300, 16,
+                                           torch.float32, cuda_device)
+    y, hf = selective_scan(x, dt, a, bm, cm, dd, impl="kernel")
+    parts = [t.contiguous() for t in (x[:, :40], dt[:, :40], bm[:, :40],
+                                      cm[:, :40], x[:, 40:], dt[:, 40:],
+                                      bm[:, 40:], cm[:, 40:])]
+    y1, h1 = selective_scan(parts[0], parts[1], a, parts[2], parts[3], dd,
+                            impl="kernel")
+    y2, h2 = selective_scan(parts[4], parts[5], a, parts[6], parts[7], dd,
+                            h1, impl="kernel")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).cpu().numpy(),
+                               y.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h2.cpu().numpy(), hf.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    yr, hr = selective_scan(x, dt, a, bm, cm, dd, impl="ref")
+    np.testing.assert_allclose(y.cpu().numpy(), yr.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.selective_scan import kernel as skernel
+    x, dt, a, bm, cm, dd, h0 = _scan_inputs(6, 1, 8, 64, 16, torch.float32,
+                                            cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        skernel.selective_scan(x, dt.bfloat16(), a, bm, cm, dd, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        skernel.selective_scan(x, dt, a, bm.transpose(1, 2).contiguous()
+                               .transpose(1, 2), cm, dd, h0)
+    wide = torch.zeros((64, 65), device=cuda_device)
+    with pytest.raises(ValueError, match="d_state"):
+        skernel.selective_scan(x, dt, wide, bm, cm, dd)

@@ -82,6 +82,49 @@ def test_backend_refusals_match_the_reference():
         serve(requests=1, kv_dtype="int8", device="cpu", verbose=False)
 
 
+def test_repeats_cut_the_depth_of_a_config(capsys):
+    """``repeats`` replaces the period's repeat count after ``reduce``:
+    the published Jamba cut to two repeats keeps every width and is the
+    plan the JAX package counts (26.1 B parameters, 48.5 GiB in bf16);
+    serve and its CLI build the cut config."""
+    import jax
+    import numpy as np
+    from repro.configs.base import get_config as jax_get_config
+    from repro.models.model import model_plan as jax_model_plan
+    from repro.models.params import param_bytes
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import model_plan
+    from repro_torch.models.params import count_params
+    full = get_config("jamba_v0_1_52b")
+    cut = serve_mod.with_repeats(full, 2)
+    assert (cut.num_layers, full.num_layers) == (16, 32)
+    assert (cut.d_model, cut.attn, cut.moe, cut.mamba, cut.period) == \
+        (full.d_model, full.attn, full.moe, full.mamba, full.period)
+    jcut = jax_get_config("jamba_v0_1_52b").replace(repeats=2)
+    jplan = jax_model_plan(jcut)
+    assert count_params(model_plan(cut)) == sum(
+        int(np.prod(p.shape)) for p in jax.tree.leaves(
+            jplan, is_leaf=lambda x: hasattr(x, "pspec")))
+    assert round(param_bytes(jplan) / 2**30, 1) == 48.5
+    out = serve(arch="jamba_v0_1_52b", repeats=3, requests=2, qps=50.0,
+                max_new=2, device="cpu", verbose=False)
+    assert out["layers"] == 6 and out["completed"] == 2
+    assert out["logits_finite"]
+    serve_mod.main(["--device", "cpu", "--arch", "jamba_v0_1_52b",
+                    "--repeats", "2", "--requests", "2", "--max-new", "2",
+                    "--qps", "50"])
+    assert "jamba-v0.1-52b-reduced (4 layers" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="repeats must be >= 1"):
+        serve_mod.with_repeats(full, 0)
+
+
+def test_paged_backend_refuses_mamba_layers():
+    with pytest.raises(ValueError, match="paged backend does not support "
+                                         "mixer 'mamba'"):
+        serve(arch="jamba_v0_1_52b", backend="paged", requests=1,
+              device="cpu", verbose=False)
+
+
 def test_cli_serves_and_rejects_unknown_flags(capsys):
     serve_mod.main(["--device", "cpu", "--requests", "2", "--max-new", "2",
                     "--qps", "50", "--no-controller"])
