@@ -9,16 +9,23 @@ on its own line:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build every kernel of the paths from the checkout's sources (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), and count each library's
+   tensor-core instructions (``HMMA`` from mma.sync, ``HGMMA`` from
+   wgmma, in ``cuobjdump --dump-sass``): a tensor-core kernel's library
+   with none fails;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the paths give it (paged attention: ragged rows, pad rows,
-   poisoned pages past the lengths; flash attention: StableLM's prefill
-   and the ragged, end-aligned, non-causal and windowed/softcapped GQA
-   cases; the WKV scan: RWKV-6 prefill and decode; the selective scan:
-   Jamba's Mamba prefill with bf16 and f32 x, a ragged S, decode and
-   two chained halves), with its time, the plain version's, a one-call
-   library yardstick's where PyTorch has one and the least time the card
-   could take;
+   shapes the paths give it (paged attention: the runtime's lane-major
+   call first, then the same rows row-major, as the JAX runtime calls,
+   with ragged rows, pad rows, poisoned pages past the lengths, int8
+   pages, GQA and a chunk past one 64-row query tile; flash attention:
+   StableLM's prefill and the ragged, end-aligned, non-causal,
+   windowed/softcapped GQA and head_dim-72 cases; the WKV scan: RWKV-6
+   prefill and decode; the selective scan: Jamba's Mamba prefill with
+   bf16 and f32 x, a ragged S, decode and two chained halves), with its
+   device time (replays of a CUDA graph of 20 calls; the eager time of
+   back-to-back calls beside it), the plain version's, a one-call library
+   yardstick's where PyTorch has one (also from a graph) and the least
+   time the card could take;
 4. full-width models (bf16, random weights from a seeded
    ``torch.Generator``) served through ``repro_torch.launch.serve``:
    StableLM-3B on the paged engine (bf16, then int8 page pools), then
@@ -107,6 +114,23 @@ def read_counts() -> dict:
     return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
+# kernels redesigned for the tensor cores: their libraries must hold
+# tensor-core instructions
+TENSOR_CORE_KERNELS = ("paged_attention_mixed", "flash_attention")
+
+
+def tensor_core_count(so: Path) -> dict:
+    """Tensor-core instructions in a built library's SASS: ``HMMA``
+    (mma.sync) and ``HGMMA`` (wgmma) lines of ``cuobjdump --dump-sass``."""
+    from repro_torch.kernels.build import nvcc_path
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout.splitlines()
+    return {op: sum(f"{op}." in ln or f"{op} " in ln for ln in sass)
+            for op in ("HMMA", "HGMMA")}
+
+
 def build_kernels() -> dict:
     builders = {name: mod.build for name, mod in kernel_modules().items()}
     t0 = time.perf_counter()
@@ -117,41 +141,76 @@ def build_kernels() -> dict:
     for name, b in built.items():
         ptxas = [ln.strip() for ln in b.log.splitlines()
                  if "registers" in ln or "spill" in ln]
+        mma = tensor_core_count(b.path)
         out[name] = {"so": b.path.name, "build_s": b.build_s,
-                     "ptxas": ptxas}
-        log(f"[2/5] built {name}: {b.path.name} in {b.build_s:.1f}s")
+                     "ptxas": ptxas, "tensor_core_sass": mma}
+        log(f"[2/5] built {name}: {b.path.name} in {b.build_s:.1f}s; "
+            f"tensor-core instructions in its SASS: HMMA {mma['HMMA']}, "
+            f"HGMMA {mma['HGMMA']}")
         for ln in ptxas:
             log(f"      ptxas: {ln}")
+        if name in TENSOR_CORE_KERNELS and not sum(mma.values()):
+            raise AssertionError(f"{name}: no tensor-core instruction in "
+                                 f"{b.path.name}")
     log(f"[2/5] all kernels built in {time.perf_counter() - t0:.1f}s")
     return out
 
 
 # ------------------------------------------------------------------ phase 3
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls
-    (inputs stay L2-warm), by CUDA events."""
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
+            graph: bool = False) -> float:
+    """Mean device time of ``fn()`` by CUDA events (inputs stay L2-warm):
+    over ``iters`` back-to-back eager calls, or, with ``graph``, over
+    replays of a CUDA graph that holds ``iters`` calls.  The graph leaves
+    the host out: an eager call shorter than its wrapper's host time
+    measures the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    reps = 1
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run, reps = g.replay, 5
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        run()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters * reps)
 
 
-def main_path_step(torch, *, heads, kv, hd, page=16, lanes=8, pps=128,
-                   pool_pages=1024, chunk=64, seed=0, device="cuda"):
-    """One fused step's attention call as the serving path makes it: 7
-    decode rows and one 64-row prefill chunk from 8 lanes of 64..1056
-    tokens, padded to the row bucket (80) with pad rows at position 0 and
-    a zero table; each row is its own Q=1 lane carrying its lane's table.
-    Pool pages past each lane's length (and slots past it in its last
-    page) are poisoned, so the causal page walk must mask them."""
+def kernel_ms(torch, fn) -> tuple:
+    """(device time from a CUDA graph, eager time) of one kernel call."""
+    return cuda_ms(torch, fn, graph=True), cuda_ms(torch, fn)
+
+
+def main_path_step(torch, *, heads, kv, hd, layout="lane", chunk=64,
+                   page=16, lanes=8, pps=128, pool_pages=1024, seed=0,
+                   device="cuda"):
+    """One fused step's attention call: 7 decode rows and one prefill
+    chunk of ``chunk`` rows from 8 lanes of ``chunk``..1056 tokens.
+    ``layout="lane"`` is the serving path's call (``serving/
+    paged_runtime.py::lane_major_layout``): one lane per sequence, Q = the
+    chunk, pad slots at position 0 on their lane's table.  ``"row"`` is the
+    JAX runtime's call: each packed row its own Q=1 lane carrying its
+    lane's table, padded to the row bucket (80 for a 64-row chunk) with
+    pad rows at position 0 on a zero table.  Pool pages
+    past each lane's length (and slots past it in its last page) are
+    poisoned, so the causal page walk must mask them."""
     import numpy as np
+    from repro_torch.serving.paged_runtime import lane_major_layout
+    from repro_torch.serving.sched import bucket_rows
     rng = np.random.default_rng(seed)
     lens = rng.integers(chunk, 1056 + 1, lanes)
     perm = rng.permutation(pool_pages)
@@ -166,23 +225,28 @@ def main_path_step(torch, *, heads, kv, hd, page=16, lanes=8, pps=128,
         v[tables[lane, last], off:] = -1e4
         k[tables[lane, last + 1:]] = 1e4
         v[tables[lane, last + 1:]] = -1e4
-    rows_t, rows_p = [], []
-    for lane in range(lanes - 1):                   # decode rows
-        rows_t.append(tables[lane])
-        rows_p.append(int(lens[lane]) - 1)
-    start = int(lens[-1]) - chunk                   # a prefill chunk
-    for i in range(chunk):
-        rows_t.append(tables[-1])
-        rows_p.append(start + i)
-    n = len(rows_p)
-    b = n if n <= 16 else -(-n // 16) * 16          # serving/sched.bucket_rows
-    bt = np.zeros((b, pps), np.int32)
-    bt[:n] = np.stack(rows_t)
-    qpos = np.zeros((b, 1), np.int32)
-    qpos[:n, 0] = rows_p
-    q = rng.standard_normal((b, 1, heads, hd)).astype(np.float32)
-    return {name: torch.from_numpy(a).to(device) for name, a in
-            (("q", q), ("k", k), ("v", v), ("bt", bt), ("qpos", qpos))}
+    # packed rows: one per decode lane, then the chunk
+    positions = [int(n) - 1 for n in lens[:-1]]
+    start = int(lens[-1]) - chunk
+    positions += list(range(start, start + chunk))
+    row_of = [(i, 1) for i in range(lanes - 1)] + [(lanes - 1, chunk)]
+    n = len(positions)
+    b = bucket_rows(n)
+    positions = np.array(positions + [0] * (b - n), np.int32)
+    q = rng.standard_normal((b, heads, hd)).astype(np.float32)
+    if layout == "lane":
+        gather, _, qpos = lane_major_layout(row_of, positions, chunk)
+        q = q[gather].reshape(lanes, chunk, heads, hd)
+        bt = tables
+    else:
+        bt = np.zeros((b, pps), np.int32)
+        for lane, (r0, rows) in enumerate(row_of):
+            bt[r0:r0 + rows] = tables[lane]
+        qpos = positions[:, None].copy()
+        q = q[:, None]
+    return {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for name, a in (("q", q), ("k", k), ("v", v), ("bt", bt),
+                            ("qpos", qpos))}
 
 
 def attention_bound(torch, q, k_pages, bt, qpos, k_scales=None):
@@ -236,14 +300,31 @@ def check_kernels(torch) -> dict:
         paged_attention_mixed_ref)
     from repro_torch.models.attention import _quantize_kv
 
-    cases = [("stablelm bf16", 32, 32, 80, torch.bfloat16, False, 2e-2),
-             ("stablelm int8 pages", 32, 32, 80, torch.bfloat16, True, 2e-2),
-             ("stablelm f32", 32, 32, 80, torch.float32, False, 2e-3),
-             ("gqa bf16 (H=32, KV=8)", 32, 8, 128, torch.bfloat16, False,
-              2e-2)]
+    # name, H, KV, hd, dtype, int8 pages, tolerance, layout, chunk; the
+    # first is the serving path's call, the second the same rows row-major
+    # (the row-major cases keep the shapes of the earlier design's record)
+    cases = [("stablelm bf16 lane-major", 32, 32, 80, torch.bfloat16, False,
+              2e-2, "lane", 64),
+             ("stablelm bf16 row-major", 32, 32, 80, torch.bfloat16, False,
+              2e-2, "row", 64),
+             ("stablelm int8 pages row-major", 32, 32, 80, torch.bfloat16,
+              True, 2e-2, "row", 64),
+             ("stablelm f32 row-major", 32, 32, 80, torch.float32, False,
+              2e-3, "row", 64),
+             ("gqa bf16 (H=32, KV=8) row-major", 32, 8, 128, torch.bfloat16,
+              False, 2e-2, "row", 64),
+             ("stablelm int8 pages lane-major", 32, 32, 80, torch.bfloat16,
+              True, 2e-2, "lane", 64),
+             ("stablelm f32 lane-major", 32, 32, 80, torch.float32, False,
+              2e-3, "lane", 64),
+             ("gqa bf16 int8 pages (H=32, KV=8) lane-major", 32, 8, 128,
+              torch.bfloat16, True, 2e-2, "lane", 64),
+             ("stablelm bf16 lane-major, a 128-row chunk", 32, 32, 80,
+              torch.bfloat16, False, 2e-2, "lane", 128)]
     results = []
-    for name, heads, kv, hd, dt, int8, tol in cases:
-        x = main_path_step(torch, heads=heads, kv=kv, hd=hd)
+    for name, heads, kv, hd, dt, int8, tol, layout, chunk in cases:
+        x = main_path_step(torch, heads=heads, kv=kv, hd=hd, layout=layout,
+                           chunk=chunk)
         q = x["q"].to(dt)
         kw = {}
         if int8:
@@ -266,35 +347,39 @@ def check_kernels(torch) -> dict:
             # int8 pages against the same pages in full precision
             fp = paged_attention_mixed_ref(q, x["k"].to(dt), x["v"].to(dt),
                                            x["bt"], x["qpos"])
-            live = x["qpos"][:, 0] > 0
+            live = x["qpos"] > 0
             fp_err = float((out.float() - fp.float())[live].abs().max())
             ok = ok and bool(torch.allclose(out.float()[live],
                                             fp.float()[live], rtol=0.05,
                                             atol=0.05))
             extra = f", vs fp pages {fp_err:.3g} (tol 0.05)"
-        ms = cuda_ms(torch, lambda: pa_kernel.paged_attention_mixed(
-            *args, **kw))
+        ms, eager_ms = kernel_ms(
+            torch, lambda: pa_kernel.paged_attention_mixed(*args, **kw))
         plain_ms = cuda_ms(torch, lambda: paged_attention_mixed_ref(
             *args, **kw), iters=5)
-        lib_ms = cuda_ms(torch, sdpa_yardstick(torch, *args, **kw))
+        lib_ms = cuda_ms(torch, sdpa_yardstick(torch, *args, **kw),
+                         graph=True)
         bound_ms, bound_by, nbytes, ops = attention_bound(
             torch, q, kp, x["bt"], x["qpos"], kw.get("k_scales"))
-        res = {"case": name, "shape": {"B": q.shape[0], "Q": q.shape[1],
+        res = {"case": name, "layout": layout,
+               "shape": {"B": q.shape[0], "Q": q.shape[1],
                                        "H": heads, "KV": kv, "hd": hd,
                                        "page": kp.shape[1],
                                        "width": x["bt"].shape[1],
                                        "pool_pages": kp.shape[0]},
                "dtype": str(dt).replace("torch.", ""), "int8_pages": int8,
                "max_abs_err": err, "tol": tol, "ok": ok, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bytes": nbytes, "ops": ops}
+               "eager_ms": eager_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "ops": ops}
         results.append(res)
-        log(f"[3/5] paged_attention_mixed {name}: B={q.shape[0]} Q=1 "
+        log(f"[3/5] paged_attention_mixed {name}: B={q.shape[0]} "
+            f"Q={q.shape[1]} "
             f"H={heads} KV={kv} hd={hd}: max_abs_err {err:.3g} (tol {tol})"
-            f"{extra}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop)")
+            f"{extra}; kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+            f"{ops / 1e9:.3f} Gop)")
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"on {name}: max_abs_err {err}")
@@ -354,6 +439,8 @@ def check_flash(torch) -> list:
          torch.bfloat16, 2e-2),
         ("gqa H=32 KV=8 hd=128 window 256 softcap 50 bf16", 1, 1024, 1024,
          32, 8, 128, True, 256, 50.0, torch.bfloat16, 2e-2),
+        ("hd=72 (padded to 80) S=T=1024 bf16", 1, 1024, 1024, 32, 32, 72,
+         True, 0, None, torch.bfloat16, 2e-2),
     ]
     results = []
     for (name, b, s, t, h, kv, hd, causal, window, cap, dt,
@@ -366,7 +453,8 @@ def check_flash(torch) -> list:
         err = float((out.float() - ref.float()).abs().max())
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=tol,
                                  atol=tol))
-        ms = cuda_ms(torch, lambda: fa_kernel.flash_attention(q, k, v, **kw))
+        ms, eager_ms = kernel_ms(
+            torch, lambda: fa_kernel.flash_attention(q, k, v, **kw))
         plain_ms = cuda_ms(torch, lambda: flash_attention_ref(q, k, v, **kw),
                            iters=5)
         mask = flash_mask(torch, s, t, causal, window)
@@ -379,20 +467,22 @@ def check_flash(torch) -> list:
             sdpa_kw = (dict(is_causal=True) if plain_causal else
                        dict(attn_mask=mask) if causal or window else {})
             lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, enable_gqa=kv != h, **sdpa_kw))
+                qs, ks, vs, enable_gqa=kv != h, **sdpa_kw), graph=True)
         bound_ms, bound_by, nbytes, ops = flash_bound(torch, q, k, mask)
         res = {"case": name, "shape": {"B": b, "S": s, "T": t, "H": h,
                                        "KV": kv, "hd": hd},
                "causal": causal, "window": window, "softcap": cap,
                "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
-               "tol": tol, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+               "tol": tol, "ok": ok, "ms": ms, "eager_ms": eager_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ops": ops}
         results.append(res)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)"
         log(f"[3/5] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
             f"hd={hd}: max_abs_err {err:.3g} (tol {tol}); kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
+            f"ms (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa {lib}, "
+            f"bound "
             f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
             f"{ops / 1e9:.3f} Gop)")
         if not ok:
@@ -455,7 +545,7 @@ def check_wkv(torch) -> list:
         s_err = float((sf - sr).abs().max())
         ok = (bool(torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol))
               and bool(torch.allclose(sf, sr, rtol=1e-4, atol=1e-4)))
-        ms = cuda_ms(torch, lambda: wkv_kernel.rwkv6_scan(*args))
+        ms, eager_ms = kernel_ms(torch, lambda: wkv_kernel.rwkv6_scan(*args))
         plain_ms = cuda_ms(torch, lambda: rwkv6_scan_ref(*args), iters=3,
                            warmup=1)
         bound_ms, bound_by, nbytes, ops = wkv_bound(torch, args[0])
@@ -463,13 +553,14 @@ def check_wkv(torch) -> list:
                "dtype": str(dt).replace("torch.", ""),
                "max_abs_err": max(err, s_err), "y_err": err,
                "state_err": s_err, "tol": tol, "ok": ok, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": None,
+               "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops}
         results.append(res)
         log(f"[3/5] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
-            f"{s_err:.3g} (rtol = atol = 1e-4); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{s_err:.3g} (rtol = atol = 1e-4); kernel {ms:.4f} ms (eager "
+            f"{eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
             f"none, bound {bound_ms:.4f} ms ({bound_by}: "
             f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop)")
         if not ok:
@@ -575,7 +666,7 @@ def check_scan(torch) -> list:
                 torch.allclose(hf, whole_h, rtol=1e-4, atol=1e-4))
             extra = f", chained vs one call {c_err:.3g} (tol 1e-4)"
             del whole_y, whole_h
-        ms = cuda_ms(torch, lambda: kernel_fn(*args))
+        ms, eager_ms = kernel_ms(torch, lambda: kernel_fn(*args))
         plain_ms = cuda_ms(torch, lambda: plain_fn(*args), iters=3,
                            warmup=1)
         bound_ms, bound_by, nbytes, ops, exp_ms = scan_bound(
@@ -584,15 +675,15 @@ def check_scan(torch) -> list:
                "x_dtype": str(dt).replace("torch.", ""), "h0": with_h0,
                "max_abs_err": max(err, h_err), "y_err": err,
                "state_err": h_err, "tol": tol, "ok": ok, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": None,
+               "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops, "sfu_exp_ms": exp_ms}
         results.append(res)
         log(f"[3/5] selective_scan {name}: B={b} S={s} D={d} N={n}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
-            f"{h_err:.3g} (rtol = atol = 1e-4){extra}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} "
-            f"ms ({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop; "
+            f"{h_err:.3g} (rtol = atol = 1e-4){extra}; kernel {ms:.4f} ms "
+            f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
+            f"none, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop; "
             f"the exponentials alone on the SFUs {exp_ms:.4f} ms)")
         if not ok:
             raise AssertionError(f"selective scan kernel disagrees with its "

@@ -25,6 +25,7 @@ from repro_torch.kernels.build import BuiltLibrary, load_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
 _GRID_YZ_MAX = 65535
+_TILE_Q = 64                    # query rows per block in the CUDA source
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,8 +78,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
            f"bfloat16)")
     _check(kv >= 1 and h % kv == 0, f"heads {h} not a multiple of kv {kv}")
     _check(1 <= hd <= MAX_HEAD_DIM, f"head_dim {hd} outside 1..{MAX_HEAD_DIM}")
-    _check(h <= _GRID_YZ_MAX and b <= _GRID_YZ_MAX,
-           "too many heads or batch rows for the grid")
+    _check(h <= _GRID_YZ_MAX and b <= _GRID_YZ_MAX
+           and -(-s // _TILE_Q) <= _GRID_YZ_MAX,
+           "too many heads, batch rows or query tiles for the grid")
     _check(window >= 0, f"window {window} must be >= 0")
     _check(softcap is None or softcap > 0, f"softcap {softcap} must be > 0")
     if scale is None:

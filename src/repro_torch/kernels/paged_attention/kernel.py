@@ -23,7 +23,7 @@ from repro_torch.kernels.build import BuiltLibrary, load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 MAX_HEAD_DIM = 256
-_ROWS_PER_BLOCK = 16            # kRows in the CUDA source
+_ROWS_PER_BLOCK = 16            # the f32 kernel's kRows (bf16 takes 64)
 _GRID_YZ_MAX = 65535
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -24,6 +24,19 @@ Differences from the JAX runtime, none of which changes a result:
   the kernel sees the same shapes as the JAX kernel would.
 * The slot/page/position bookkeeping of the packed rows is computed on the
   host with numpy (the JAX runtime computes it inside its jitted step).
+* Attention is called LANE-MAJOR: one kernel lane per sequence of the
+  step, carrying all of its rows (a decode lane's ``1 + len(draft)``, a
+  chunk's ``clen``) padded to a few row buckets (1, 1 + spec_k, the chunk
+  size) with pad rows at position 0 on the lane's own table
+  (:func:`lane_major_layout`); one gather brings q into ``[L, Q, H, hd]``
+  and one brings the context back to the packed rows.  The JAX runtime
+  makes every packed row a one-row lane carrying its lane's table, which
+  gathers a 64-row chunk's pages 64 times; its per-lane form "measured ~3x
+  slower on the CPU oracle because padding dominates", but on the card the
+  kernel reads each lane's pages once per 64-row tile and a warp of pad
+  rows does one tile of work, so the lane-major form is the one taken.
+  Each row attends to the same keys either way; the two calls agree to
+  float32 rounding.
 
 Only pure-GQA decoder stacks are supported (no MLA / SSM / RWKV mixers, no
 sliding windows, no cross-attention), as in the JAX runtime.
@@ -67,6 +80,40 @@ def paged_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
         if layer.cross_attn:
             return "cross-attention layers"
     return None
+
+
+def lane_rows_bucket(rows: int, spec_k: int, chunk: int) -> int:
+    """Rows per lane of the step's lane-major call: the smallest of the
+    buckets (1, 1 + spec_k, chunk) that holds ``rows``, so the kernel sees
+    few shapes."""
+    for bucket in sorted({1, 1 + spec_k, chunk}):
+        if rows <= bucket:
+            return bucket
+    return rows
+
+
+def lane_major_layout(row_of, positions, q_len: int):
+    """Map a step's packed rows onto the lane-major call ``[L, q_len]``.
+
+    ``row_of`` holds (first packed row, rows) per lane, ``positions`` the
+    packed rows' positions [T].  Returns ``gather`` [L * q_len], the packed
+    row each lane slot reads (a pad slot reads its lane's first row),
+    ``scatter`` [T], the lane slot each packed row reads its context from
+    (a pad packed row reads slot 0), and ``qpos`` [L, q_len] int32, the
+    slots' positions (0 for pad slots)."""
+    n_lanes = len(row_of)
+    gather = np.zeros(n_lanes * q_len, np.int64)
+    scatter = np.zeros(positions.shape[0], np.int64)
+    qpos = np.zeros((n_lanes, q_len), np.int32)
+    for lane, (r0, n) in enumerate(row_of):
+        if n > q_len:
+            raise ValueError(f"lane {lane} has {n} rows > q_len {q_len}")
+        base = lane * q_len
+        gather[base:base + q_len] = r0
+        gather[base:base + n] = r0 + np.arange(n)
+        scatter[r0:r0 + n] = base + np.arange(n)
+        qpos[lane, :n] = positions[r0:r0 + n]
+    return gather, scatter, qpos
 
 
 class PagedRuntime:
@@ -181,9 +228,11 @@ class PagedRuntime:
 
     # ------------------------------------------------ forward: fused mixed
     def _mixed_layer(self, lp, h, layer: LayerSpec, qpos, page_ids, offs,
-                     block_tables, pool):
+                     lanes, pool):
         """One GQA layer over the packed rows ``h`` [T, d]; KV via the page
-        pool, causality via per-row positions inside the page walk."""
+        pool, causality via per-row positions inside the page walk, the
+        attention call lane-major (``lanes``: block tables [L, W], slot
+        positions [L, Q], gather [L*Q] and scatter [T] indices)."""
         cfg = self.cfg
         ap = lp["attn"]
         xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
@@ -196,24 +245,27 @@ class PagedRuntime:
         kwargs = {}
         if self.kv_quant:
             kwargs = dict(k_scales=pool["k_scale"], v_scales=pool["v_scale"])
-        # each packed row is its own one-row lane carrying its lane's table
-        # (the JAX runtime's call shape, paged_runtime.py:266-276 there)
-        ctx = paged_attention_mixed(q[:, None].to(h.dtype), pool["k"],
-                                    pool["v"], block_tables, qpos[:, None],
-                                    impl=self.attn_impl, **kwargs)  # [T,1,H,hd]
-        out = einsum("thk,hkd->td", ctx[:, 0].to(h.dtype), ap["wo"])
+        block_tables, lane_qpos, gather, scatter = lanes
+        n_lanes, q_len = lane_qpos.shape
+        ql = q.to(h.dtype).index_select(0, gather).reshape(
+            n_lanes, q_len, *q.shape[1:])
+        ctx = paged_attention_mixed(ql, pool["k"], pool["v"], block_tables,
+                                    lane_qpos, impl=self.attn_impl, **kwargs)
+        ctx = ctx.reshape(n_lanes * q_len, *q.shape[1:]).index_select(
+            0, scatter)                                          # [T, H, hd]
+        out = einsum("thk,hkd->td", ctx.to(h.dtype), ap["wo"])
         h = h + out
         return _apply_ffn(lp, h, layer, cfg)
 
     @torch.no_grad()
-    def _mixed_impl(self, tokens, qpos, page_ids, offs, block_tables,
-                    last_rows):
-        """tokens/qpos/page_ids/offs [T] (qpos: pad rows at 0),
-        block_tables [T, W] int32, last_rows [L] -> logits [L, V] f32."""
+    def _mixed_impl(self, tokens, qpos, page_ids, offs, lanes, last_rows):
+        """tokens/qpos/page_ids/offs [T] (qpos: pad rows at 0), ``lanes``
+        the lane-major call's arrays (``_mixed_layer``), last_rows [N] ->
+        logits [N, V] f32."""
         h = embed_tokens(self.params, self.cfg, tokens)
         for lp, layer, pool in self._layers:
-            h = self._mixed_layer(lp, h, layer, qpos, page_ids, offs,
-                                  block_tables, pool)
+            h = self._mixed_layer(lp, h, layer, qpos, page_ids, offs, lanes,
+                                  pool)
         h = rms_norm(h, self.params["final_norm"], self.cfg.norm_eps)
         return _logits(self.params, self.cfg, h[last_rows])
 
@@ -235,19 +287,24 @@ class PagedRuntime:
         return self.sched.drain_for_redrive()
 
     # ------------------------------------------------------------ fused step
-    def _run_mixed(self, tokens, positions, n_rows, bts, last_rows):
-        """Run the fused forward on the step's packed host arrays.  Returns
-        (logits [L, V] f32 on the device, compute_s).  The device is
-        synchronised before and after the timed region, so ``compute_s`` is
-        the step's device time plus its host work, not its launch time."""
+    def _run_mixed(self, tokens, positions, n_rows, bts, last_rows, row_of):
+        """Run the fused forward on the step's packed host arrays (``bts``
+        [L, W]: one block table per lane; ``row_of``: each lane's first
+        packed row and row count).  Returns (logits [N, V] f32 on the
+        device, compute_s).  The device is synchronised before and after
+        the timed region, so ``compute_s`` is the step's device time plus
+        its host work, not its launch time."""
         t = tokens.shape[0]
         width = bts.shape[1]
+        q_len = lane_rows_bucket(max(n for _, n in row_of), self.spec_k,
+                                 self.chunk)
+        gather, scatter, lane_qpos = lane_major_layout(row_of, positions,
+                                                       q_len)
         valid = np.arange(t) < n_rows
         slot = np.clip(positions // self.page, 0, width - 1)
-        page_ids = np.where(valid, bts[np.arange(t), slot], self.pool_pages)
+        page_ids = np.where(valid, bts[scatter // q_len, slot],
+                            self.pool_pages)
         offs = positions % self.page
-        # pad rows read slot 0 of their (zero) table so the online softmax
-        # never sees an empty row; their output is discarded
         qpos = np.where(valid, positions, 0).astype(np.int32)
         cuda = self.device.type == "cuda"
         if cuda:
@@ -258,10 +315,12 @@ class PagedRuntime:
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 self.device, dtype)
 
+        lanes = (dev(bts, torch.int32), dev(lane_qpos, torch.int32),
+                 dev(gather, torch.long), dev(scatter, torch.long))
         logits = self._mixed_impl(
             dev(tokens, torch.long), dev(qpos, torch.int32),
-            dev(page_ids, torch.long), dev(offs, torch.long),
-            dev(bts, torch.int32), dev(last_rows, torch.long))
+            dev(page_ids, torch.long), dev(offs, torch.long), lanes,
+            dev(last_rows, torch.long))
         if cuda:
             torch.cuda.synchronize(self.device)
         self.forward_passes += 1
@@ -319,12 +378,11 @@ class PagedRuntime:
             row += clen
             max_pages = max(max_pages, self.kv.pages_needed(start + clen))
         width = min(self.pps, next_pow2(max_pages))
-        bts = np.zeros((t, width), np.int32)
-        for (r0, n), lane in zip(row_of, lanes):
-            bts[r0:r0 + n] = self.kv.block_table(lane[1].req.req_id, width)
+        bts = np.stack([self.kv.block_table(lane[1].req.req_id, width)
+                        for lane in lanes])
 
         logits, report.compute_s = self._run_mixed(tokens, positions, n_rows,
-                                                   bts, last_rows)
+                                                   bts, last_rows, row_of)
         self.logits_finite &= bool(torch.isfinite(logits).all())
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
 

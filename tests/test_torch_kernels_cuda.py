@@ -43,12 +43,62 @@ def cuda_device():
     (torch.bfloat16, True, 32, 32, 80, 2e-2),
     (torch.float32, False, 32, 32, 80, 2e-3),
     (torch.bfloat16, False, 32, 8, 128, 2e-2),
+    (torch.bfloat16, True, 32, 8, 128, 2e-2),    # GQA with int8 pages
+    (torch.bfloat16, False, 4, 2, 72, 2e-2),     # hd padded to 80
+    (torch.bfloat16, True, 4, 4, 50, 2e-2),      # hd % 8 != 0: no cp.async
 ])
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, kv_int8, h,
                                            kv, hd, tol):
     b, qn, page, pps, npages = 6, 5, 16, 12, 80
     q, kp, vp, bt, qpos = _mixed_inputs(7, b, qn, h, kv, hd, page, pps,
                                         npages)
+    kw = {}
+    if kv_int8:
+        kp, ks = _quantize_kv(kp)
+        vp, vs = _quantize_kv(vp)
+        kw = dict(k_scales=ks.float().to(cuda_device),
+                  v_scales=vs.float().to(cuda_device))
+    pdt = torch.int8 if kv_int8 else dtype
+    args = [q.to(cuda_device, dtype), kp.to(cuda_device, pdt),
+            vp.to(cuda_device, pdt), bt.to(cuda_device),
+            qpos.to(cuda_device)]
+    before = tkernel.launches
+    out = paged_attention_mixed(*args, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    assert tkernel.launches == before + 1
+    ref = paged_attention_mixed(*args, impl="ref", **kw)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def _lane_major_inputs(seed, qn, h, kv, hd, page=16, pps=24, npages=120):
+    """Three lanes as the serving runtime lays them out: a decode lane (one
+    row, then pad rows at position 0), a prefill chunk of ``qn`` rows, and
+    a speculative lane of 4 rows; every pad row reads its own lane's table."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((3, qn, h, hd)).astype(np.float32)
+    kp = rng.standard_normal((npages, page, kv, hd)).astype(np.float32)
+    vp = rng.standard_normal((npages, page, kv, hd)).astype(np.float32)
+    bt = rng.permutation(npages)[:3 * pps].reshape(3, pps).astype(np.int32)
+    qpos = np.zeros((3, qn), np.int32)
+    qpos[0, 0] = 300
+    qpos[1] = 100 + np.arange(qn)
+    qpos[2, :4] = 200 + np.arange(4)
+    return [torch.from_numpy(a) for a in (q, kp, vp, bt, qpos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv_int8,qn,h,kv,hd,tol", [
+    (torch.bfloat16, False, 64, 32, 32, 80, 2e-2),
+    (torch.bfloat16, False, 80, 32, 32, 80, 2e-2),   # a chunk past 64 rows
+    (torch.bfloat16, True, 64, 32, 32, 80, 2e-2),
+    (torch.bfloat16, True, 24, 32, 8, 128, 2e-2),    # GQA: 96 rows a lane
+    (torch.float32, False, 80, 32, 32, 80, 2e-3),
+])
+def test_cuda_kernel_lane_major_matches_plain_version(cuda_device, dtype,
+                                                      kv_int8, qn, h, kv, hd,
+                                                      tol):
+    q, kp, vp, bt, qpos = _lane_major_inputs(qn + hd, qn, h, kv, hd)
     kw = {}
     if kv_int8:
         kp, ks = _quantize_kv(kp)
@@ -91,6 +141,10 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):
     (1, 130, 130, 4, 4, 64, False, 0, None, torch.float32, 2e-3),
     (1, 300, 300, 8, 2, 128, True, 128, 50.0, torch.bfloat16, 2e-2),
     (1, 70, 70, 2, 2, 256, True, 0, None, torch.float32, 2e-3),
+    (1, 200, 200, 4, 4, 72, True, 0, None, torch.bfloat16, 2e-2),
+    (2, 100, 150, 4, 2, 50, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 100, 40, 4, 4, 64, True, 0, None, torch.bfloat16, 2e-2),  # zero rows
+    (1, 150, 150, 4, 4, 256, True, 0, None, torch.bfloat16, 2e-2),
 ])
 def test_flash_kernel_matches_plain_version(cuda_device, b, s, t, h, kv, hd,
                                             causal, window, cap, dtype, tol):

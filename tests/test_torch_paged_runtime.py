@@ -17,6 +17,8 @@ from repro_torch.configs.base import reduced as t_reduced
 from repro_torch.kernels.paged_attention import kernel as tkernel
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.paged_runtime import (lane_major_layout,
+                                               lane_rows_bucket)
 from repro_torch.serving.request import Request
 
 JCFG = reduced(get_config("stablelm_3b")).replace(dtype="float32")
@@ -275,3 +277,117 @@ def test_dense_backend_and_cuda_default_refused(weights, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(TCFG, params=weights[1])
+
+
+# ------------------------------------------------------ lane-major call
+def test_lane_rows_bucket():
+    assert [lane_rows_bucket(n, 3, 16) for n in (1, 2, 4, 5, 16, 17)] == \
+        [1, 4, 4, 16, 16, 17]
+    assert [lane_rows_bucket(n, 0, 16) for n in (1, 2, 16)] == [1, 16, 16]
+
+
+def _check_layout(positions, n_rows, row_of, q_len):
+    """Every live packed row maps to one (lane, slot) of its own lane and
+    back; every other slot of a lane is a pad slot at position 0 that reads
+    its lane's first row."""
+    gather, scatter, qpos = lane_major_layout(row_of, positions, q_len)
+    assert gather.shape == (len(row_of) * q_len,)
+    assert qpos.shape == (len(row_of), q_len)
+    live = set()
+    for lane, (r0, n) in enumerate(row_of):
+        for i in range(q_len):
+            slot = lane * q_len + i
+            if i < n:
+                assert gather[slot] == r0 + i
+                assert scatter[r0 + i] == slot
+                assert qpos[lane, i] == positions[r0 + i]
+                live.add(r0 + i)
+            else:
+                assert gather[slot] == r0 and qpos[lane, i] == 0
+    assert live == set(range(n_rows))
+    assert (scatter[n_rows:] == 0).all()
+
+
+def test_lane_major_packing_maps_rows_to_lane_slots_and_back(weights,
+                                                             monkeypatch):
+    """Through real steps of a speculative engine (spec_k=3, replay hints)
+    with a prefix hit: decode lanes of 1 + len(draft) rows, chunk lanes,
+    pad packed rows and pad lane slots all map one to one."""
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(0, JCFG.vocab_size, pl) for pl in (40, 7, 21)]
+    _, cold = engines(weights)
+    creqs = twin_requests([(i, p, 6, {}) for i, p in enumerate(prompts)])[1]
+    for r in creqs:
+        assert cold.submit(r)
+    drain(cold)
+    _, teng = engines(weights, spec_k=3)
+    rt = teng.runtime
+    seen = []
+    orig = rt._run_mixed
+
+    def wrap(tokens, positions, n_rows, bts, last_rows, row_of):
+        q_len = lane_rows_bucket(max(n for _, n in row_of), 3, rt.chunk)
+        _check_layout(positions, n_rows, row_of, q_len)
+        assert bts.shape[0] == len(row_of)
+        seen.append((tokens.shape[0], n_rows, [n for _, n in row_of], q_len))
+        return orig(tokens, positions, n_rows, bts, last_rows, row_of)
+
+    monkeypatch.setattr(rt, "_run_mixed", wrap)
+    specs = [(i, p, 6, dict(draft_hints=np.array(r.output_tokens)))
+             for i, (p, r) in enumerate(zip(prompts, creqs))]
+    specs.append((3, prompts[0], 6, {}))            # a prefix hit on req 0
+    treqs = twin_requests(specs)[1]
+    for r in treqs[:3]:
+        assert teng.submit(r)
+    drain(teng)
+    assert teng.submit(treqs[3])
+    drain(teng)
+    assert teng.metrics.prefix_hit_tokens_total > 0
+    rows = [n for _, _, lanes, _ in seen for n in lanes]
+    assert any(1 < n <= 4 for _, _, lanes, q in seen for n in lanes
+               if q == 4), "no speculative decode lane"
+    assert any(n > 4 for n in rows), "no chunk lane"
+    assert any(t > n for t, n, _, _ in seen), "no pad packed rows"
+    assert any(q > min(lanes) for _, _, lanes, q in seen), "no pad slots"
+    assert [r.output_tokens for r in treqs[:3]] == \
+        [r.output_tokens for r in creqs]
+
+
+def test_lane_major_call_equals_row_major_call():
+    """The plain paged attention called lane-major (the runtime's shape)
+    gives every live packed row the context the row-major call (one row
+    per lane, the JAX runtime's shape) gives it, to 1e-6 in f32."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention_mixed
+    rng = np.random.default_rng(9)
+    page, width, kv, g, hd, npages = 8, 6, 2, 3, 16, 40
+    row_of, positions, tables = [], [], []
+    row = 0
+    # decode lanes with 1 and 1 + 3 draft rows, a chunk, a prefix-hit chunk
+    for n, start in ((1, 30), (4, 12), (16, 0), (9, 20)):
+        row_of.append((row, n))
+        positions.extend(start + np.arange(n))
+        tables.append(rng.permutation(npages)[:width])
+        row += n
+    n_rows = row
+    t = 32                                          # the row bucket
+    positions = np.array(positions + [0] * (t - n_rows), np.int32)
+    bts = np.stack(tables).astype(np.int32)
+    q = torch.from_numpy(rng.standard_normal((t, kv * g, hd)).astype(
+        np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (npages, page, kv, hd)).astype(np.float32)) for _ in range(2))
+    q_len = lane_rows_bucket(16, 3, 16)
+    gather, scatter, lane_qpos = lane_major_layout(row_of, positions, q_len)
+    ql = q[torch.from_numpy(gather)].reshape(len(row_of), q_len, kv * g, hd)
+    lane_ctx = paged_attention_mixed(
+        ql, kp, vp, torch.from_numpy(bts), torch.from_numpy(lane_qpos),
+        impl="ref").reshape(-1, kv * g, hd)[torch.from_numpy(scatter)]
+    row_bts = np.zeros((t, width), np.int32)
+    for lane, (r0, n) in enumerate(row_of):
+        row_bts[r0:r0 + n] = bts[lane]
+    row_ctx = paged_attention_mixed(
+        q[:, None], kp, vp, torch.from_numpy(row_bts),
+        torch.from_numpy(positions[:, None].copy()), impl="ref")[:, 0]
+    np.testing.assert_allclose(lane_ctx[:n_rows].numpy(),
+                               row_ctx[:n_rows].numpy(), rtol=1e-6,
+                               atol=1e-6)
