@@ -20,8 +20,11 @@ on its own line:
    pages, GQA and a chunk past one 64-row query tile; flash attention:
    StableLM's prefill and the ragged, end-aligned, non-causal,
    windowed/softcapped GQA and head_dim-72 cases; the WKV scan: RWKV-6
-   prefill and decode; the selective scan: Jamba's Mamba prefill with
-   bf16 and f32 x, a ragged S, decode and two chained halves), with its
+   prefill and decode, a ragged S, bf16 inputs and the other head widths
+   at ragged B, H and S; the selective scan: Jamba's Mamba prefill with
+   bf16 and f32 x, a ragged S, decode, two chained halves, D off the
+   channel tile, N = 1, 13 and 64, and delta * A past the exponential's
+   flush to 0), with its
    device time (replays of a CUDA graph of 20 calls; the eager time of
    back-to-back calls beside it), the plain version's, a one-call library
    yardstick's where PyTorch has one (also from a graph) and the least
@@ -534,7 +537,20 @@ def check_wkv(torch) -> list:
              ("rwkv6 decode B=8 S=1 f32", 8, 1, 32, 64, torch.float32, 1e-4),
              ("ragged S=1000 f32", 1, 1000, 32, 64, torch.float32, 1e-4),
              # y comes out in bf16: one bf16 ulp is 2^-8 of |y|
-             ("bf16 inputs S=1024", 1, 1024, 32, 64, torch.bfloat16, 1e-2)]
+             ("bf16 inputs S=1024", 1, 1024, 32, 64, torch.bfloat16, 1e-2),
+             # the column-tile geometry's edges: the other head widths (1
+             # key row a lane at hd 16, 8 at hd 128, whose decode takes the
+             # column-tile kernel too), S off the 64-step chunk and the
+             # 16-step pair of groups, B = 3 x H = 5 blocks
+             ("hd 16, B=3 H=5 S=33 f32", 3, 33, 5, 16, torch.float32, 1e-4),
+             ("hd 32, B=3 H=5 S=1000 f32", 3, 1000, 5, 32, torch.float32,
+              1e-4),
+             ("hd 128, B=3 H=5 S=33 f32", 3, 33, 5, 128, torch.float32,
+              1e-4),
+             ("hd 128 decode B=8 S=1 f32", 8, 1, 5, 128, torch.float32,
+              1e-4),
+             ("hd 128, B=3 H=5 S=70 bf16", 3, 70, 5, 128, torch.bfloat16,
+              1e-2)]
     results = []
     for name, b, s, h, hd, dt, tol in cases:
         args = wkv_inputs(torch, b, s, h, hd, dt, seed=s + b)
@@ -571,10 +587,13 @@ def check_wkv(torch) -> list:
     return results
 
 
-def scan_inputs(torch, b, s, d, n, x_dtype, seed, with_h0=True):
+def scan_inputs(torch, b, s, d, n, x_dtype, seed, with_h0=True,
+                wide_a=False):
     """x/delta/a/b/c/d (and h0) as the kernel tests draw them: delta in
     (0, ~0.3), A negative, B/C/x of spread 0.5; everything but x f32, as
-    ``models/ssm.py::_ssm_coeffs`` hands them over."""
+    ``models/ssm.py::_ssm_coeffs`` hands them over.  wide_a: A log-uniform
+    in (-1000, -0.01) and delta uniform in (0, 1) instead, so delta * A
+    spans the whole range the exponential sees."""
     import numpy as np
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal((b, s, d)) * 0.5,
@@ -583,6 +602,10 @@ def scan_inputs(torch, b, s, d, n, x_dtype, seed, with_h0=True):
               rng.standard_normal((b, s, n)) * 0.5,
               rng.standard_normal((b, s, n)) * 0.5,
               rng.standard_normal((d,))]
+    if wide_a:
+        arrays[1] = rng.uniform(0, 1, (b, s, d))
+        arrays[2] = -np.exp(rng.uniform(np.log(0.01), np.log(1000.0),
+                                        (d, n)))
     if with_h0:
         arrays.append(rng.standard_normal((b, d, n)) * 0.1)
     out = [torch.from_numpy(a.astype(np.float32)).to("cuda")
@@ -639,11 +662,29 @@ def check_scan(torch) -> list:
              ("decode B=8 S=1 x bf16", 8, 1, 8192, 16, torch.bfloat16, True,
               1e-2),
              ("two chained halves of S=1024 x f32", 1, 1024, 8192, 16,
+              torch.float32, True, 1e-4),
+             # the channel tile's edges (64 channels a block for N <= 16,
+             # 16 for N = 64): D off the tile, the state counts' padding
+             # (N = 1 and 13 in the 16-state build), one step
+             ("D=8200 S=70 x bf16", 1, 70, 8200, 16, torch.bfloat16, True,
+              1e-2),
+             ("N=1 D=8200 S=45 x f32", 2, 45, 8200, 1, torch.float32, True,
+              1e-4),
+             # D % 8 != 0: x and delta staged element by element
+             ("N=13 D=1001 S=50 x f32", 2, 50, 1001, 13, torch.float32, True,
+              1e-4),
+             ("N=64 D=8200 S=1 x bf16", 3, 1, 8200, 64, torch.bfloat16, True,
+              1e-2),
+             ("N=64 S=40 x f32", 1, 40, 1024, 64, torch.float32, True, 1e-4),
+             # delta * A (log2 units) from 0 to past -126, where the SFU's
+             # 2^x flushes to 0 and the plain exp passes through denormals
+             ("exponent range past -126 x f32", 2, 96, 1024, 16,
               torch.float32, True, 1e-4)]
     results = []
     for name, b, s, d, n, dt, with_h0, tol in cases:
         args = scan_inputs(torch, b, s, d, n, dt, seed=s + b,
-                           with_h0=with_h0)
+                           with_h0=with_h0,
+                           wide_a=name.startswith("exponent range"))
         kernel_fn, plain_fn = scan_kernel.selective_scan, selective_scan_ref
         extra = ""
         if name.startswith("two chained"):

@@ -21,6 +21,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace tc {
 
 constexpr int kWarps = 4;
@@ -28,26 +30,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileQ = 16 * kWarps;     // query rows per block
 constexpr int kTileK = 64;              // keys per staged tile
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy that bypasses L1; with fill false the 16
-// bytes are written as zeros and src is not read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(fill ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const __nv_bfloat16* p) {

@@ -16,154 +16,200 @@
 // D = 8192, N = 16, x bf16, delta / B / C f32) the inputs, y and the
 // states are ~69 MB (~21 us at 3.35 TB/s) against ~0.96 Gop of f32 work
 // (~14 us at 67 TFLOP/s), so bytes bind by the data sheet's rates.  But
-// the S * D * N = 134 M exponentials run on the special-function units,
-// 16 results per clock per SM: ~32 us at 1.98 GHz, so the exponentials,
-// not the bytes, are the likely floor of a design that computes each one.
-// The recurrence is sequential in t; the parallelism is B * D * N.
+// the S * D * N = 134 M exponentials on the special-function units, 16
+// results a clock per SM, take ~32 us at 1.98 GHz, and the ~5 issued
+// instructions per state and step (~20 us at 4 a clock per SM) come close
+// behind.  The recurrence is sequential in t; the parallelism is B * D * N.
 //
-// What this design does about it, and what it leaves for later:
-//   * one block of 256 threads serves 64 channels of one batch row; four
-//     threads share a channel and each keeps a run of N / 4 of its states
-//     (and A, pre-scaled by log2(e) for ex2) in registers for the whole
-//     sequence, so the state is read and written once and B = 1 at
-//     D = 8192 still runs 128 blocks of 8 warps;
-//   * x with delta (as one float2, coalesced across channels) and the
-//     B_t / C_t rows (shared by every channel of the block, laid out so a
-//     thread's states are one 16-byte load) are staged in shared memory
-//     32 steps at a time; the next chunk's loads are issued into
-//     registers, x in its own type, before the current chunk is computed,
-//     so nothing waits on them; y is gathered in shared memory and stored
-//     coalesced;
-//   * the recurrence advances 8 steps at a time: the exponentials and
-//     products of the group wait on nothing but their inputs, and the
-//     group's partial y sums meet in one pipelined round of shuffles;
-//     the exponential is ex2.approx.ftz, one special-function-unit op;
-//   * what is left is per-step instruction issue and shared-memory
-//     traffic in a sequential loop; at B = 1 one block per SM runs, so
-//     more states or channels per warp (fewer shuffles and loads per
-//     state) and a chunked two-pass form across the sequence are the
-//     next steps;
-//   * the TPU kernel's VMEM-resident [block_d, N] state tile and its
-//     sequential chunk grid have no counterpart: a block walks the
-//     whole sequence itself; a decode step (S = 1) is one partial chunk.
+// The first design (64 channels x 4 lanes = 256 threads a block; 32-step
+// chunks with two barriers each, the next chunk's loads held in
+// registers; per-step guards on the state count; an all-reduce of every
+// y sum) ran at 7.3x the bound and 4.7x the exponential floor.  This
+// design:
+//   * keeps the first design's block, 64 channels x 4 lanes = 256 threads
+//     (128 blocks at B = 1): smaller blocks, two or four an SM, measured
+//     no faster once a chunk costs one barrier.  Each thread keeps N / 4
+//     states of one channel (and A, pre-scaled by log2 e) in registers
+//     for the whole sequence;
+//   * stages x, delta (16-byte cp.async) and the B_t / C_t rows (4-byte
+//     cp.async, at a stride of the build's state count, so a thread's run
+//     is one vector load) 64 steps at a time into two buffers: the next
+//     chunk loads while this one computes, one barrier a chunk (32-step
+//     chunks, twice the barriers, measured slower); each thread copies
+//     fixed pieces, so a copy costs a few instructions.  Steps past the
+//     sequence and states past N are staged as zeros, which leave the
+//     state as it is, so no step or state is checked;
+//   * takes 8 steps at a time (1 for a call of fewer than 8 steps): their
+//     partial y sums meet in one reduce-scatter across the channel's 4
+//     lanes (6 shuffles a lane, not 16), after which each lane stores 2 of
+//     the 8 y values; D x joins the sum on the channel's first lane;
+//     groups run in pairs, so one group's sums meet while the next group
+//     computes;
+//   * computes every exponential on the special-function units
+//     (ex2.approx.ftz): moving a share of them onto the FMA pipes (a
+//     degree-6 polynomial) made the kernel slower at every share tried, a
+//     sign that issue and latency, not the SFUs, set its pace;
+//   * leaves a chunked two-pass form across the sequence for later: it
+//     recomputes or stores the exponentials and does not pay at Jamba's
+//     shape.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "recurrence.cuh"
+
 namespace {
 
-constexpr int kChannels = 64;                  // channels per block
-constexpr int kLanes = 4;                      // threads per channel
-constexpr int kThreads = kChannels * kLanes;   // 256
-constexpr int kChunk = 32;                     // steps staged per round
-constexpr int kGroup = 8;                      // steps whose y sums meet
+using rec::from_f32;
+using rec::load_run;
+using rec::to_f32;
+
+constexpr int kPer = 4;          // states a thread holds
+constexpr int kThreads = 256;
+constexpr int kLongChunk = 64;   // steps staged per round (1-step groups: 8)
+constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// One stage in shared memory for a build holding up to kMaxN states and
+// meeting its y sums every kGroup steps: kLanes threads share a channel,
+// kChannels channels a block, kChunk steps a stage.
+template <typename T, int kMaxN, int kGroup>
+struct Stage {
+  static constexpr int kLanes = kMaxN / kPer;
+  static constexpr int kChannels = kThreads / kLanes;
+  static constexpr int kChunk = kGroup == 1 ? 8 : kLongChunk;
+  float dt[kChunk][kChannels];
+  float b[kChunk][kMaxN];
+  float c[kChunk][kMaxN];
+  T x[kChunk][kChannels];
+};
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 2^x on the special-function unit, denormals flushed to zero (a state
-// decays through them to nothing either way)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// kPer consecutive floats from 16-byte-aligned shared memory, in as few
-// loads as their count allows
-template <int kPer>
-__device__ __forceinline__ void load_run(const float* p, float (&v)[kPer]) {
-  if constexpr (kPer % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < kPer; i += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + i);
-      v[i] = q.x;
-      v[i + 1] = q.y;
-      v[i + 2] = q.z;
-      v[i + 3] = q.w;
-    }
-  } else if constexpr (kPer == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) v[i] = p[i];
-  }
-}
-
-// Loads of one chunk: this thread's share of x / delta (channel
-// tid % kChannels, steps tid / kChannels + k * kThreads / kChannels) and
-// of the chunk's contiguous B / C rows.  Out-of-range entries keep 0.  x
-// stays in its own type until it is staged, so no instruction waits on a
-// load here: the loads are in flight while the previous chunk computes.
-template <typename T, int kXLoads, int kBLoads>
-__device__ __forceinline__ void fetch_chunk(
-    const T* __restrict__ x, const float* __restrict__ delta,
-    const float* __restrict__ bm, const float* __restrict__ cm,
-    size_t xbase, size_t nbase, size_t row, bool col_live, int first_step,
-    int tid, int t0, int seq, int n, T (&xr)[kXLoads],
-    float (&dr)[kXLoads], float (&br)[kBLoads], float (&cr)[kBLoads]) {
-  constexpr int kStepStride = kThreads / kChannels;
+// Copies steps t0 .. of the block's channels into a stage, up to the end
+// of the pair of groups (2 kGroup steps) that holds the last live step;
+// steps past seq and channels past dim become zeros, and so do states past
+// n (set once by the kernel, never copied over).  vec: x and delta
+// 16-byte aligned with dim % 8 == 0, copied 16 bytes at a time; otherwise
+// element by element.  B and C rows go 4 bytes at a time.
+template <typename T, int kMaxN, int kGroup>
+__device__ __forceinline__ void stage_chunk(
+    Stage<T, kMaxN, kGroup>& sg, const T* __restrict__ x,
+    const float* __restrict__ delta, const float* __restrict__ bm,
+    const float* __restrict__ cm, size_t xbase, size_t nbase, int dim,
+    int d0, int n, int t0, int seq, bool vec) {
+  constexpr int kCh = Stage<T, kMaxN, kGroup>::kChannels;
+  constexpr int kChunk = Stage<T, kMaxN, kGroup>::kChunk;
+  constexpr int kPair = 2 * kGroup;
+  const int tid = threadIdx.x;
   const int nt = min(kChunk, seq - t0);
-#pragma unroll
-  for (int k = 0; k < kXLoads; ++k) {
-    const int c = first_step + k * kStepStride;
-    const size_t off = xbase + size_t(t0 + c) * row;
-    xr[k] = from_f32<T>(0.f);
-    dr[k] = 0.f;
-    if (col_live && c < nt) {
-      xr[k] = x[off];
-      dr[k] = delta[off];
+  const int len = min(kChunk, (nt + kPair - 1) / kPair * kPair);
+  // B and C: each thread copies one state of every kBPass-th step
+  constexpr int kBPass = kThreads / kMaxN;
+  const int s = tid % kMaxN;
+  if (s < n) {
+    const int c_b = tid / kMaxN;
+    size_t off = nbase + size_t(t0 + c_b) * n + s;
+    for (int c = c_b; c < len; c += kBPass, off += size_t(kBPass) * n) {
+      const bool live = c < nt;
+      tc::cp_async4(&sg.b[c][s], live ? bm + off : bm, live);
+      tc::cp_async4(&sg.c[c][s], live ? cm + off : cm, live);
     }
   }
-  const size_t boff = nbase + size_t(t0) * n;
-#pragma unroll
-  for (int k = 0; k < kBLoads; ++k) {
-    const int e = tid + k * kThreads;
-    br[k] = 0.f;
-    cr[k] = 0.f;
-    if (e < nt * n) {
-      br[k] = bm[boff + e];
-      cr[k] = cm[boff + e];
+  if (vec) {
+    // x and delta: each thread copies one 16-byte piece of every kPass-th
+    // step
+    constexpr int kXPer = 16 / int(sizeof(T));
+    constexpr int kXCopies = kCh / kXPer, kXPass = kThreads / kXCopies;
+    constexpr int kDCopies = kCh / 4, kDPass = kThreads / kDCopies;
+    const int c_x = tid / kXCopies, p_x = tid % kXCopies * kXPer;
+    const bool x_live = d0 + p_x < dim;
+    const T* from_x = x + xbase + size_t(t0 + c_x) * dim + p_x;
+    for (int c = c_x; c < len; c += kXPass, from_x += size_t(kXPass) * dim) {
+      const bool live = c < nt && x_live;
+      tc::cp_async16(&sg.x[c][p_x], live ? from_x : x, live);
+    }
+    const int c_d = tid / kDCopies, p_d = tid % kDCopies * 4;
+    const bool d_live = d0 + p_d < dim;
+    const float* from_d = delta + xbase + size_t(t0 + c_d) * dim + p_d;
+    for (int c = c_d; c < len; c += kDPass, from_d += size_t(kDPass) * dim) {
+      const bool live = c < nt && d_live;
+      tc::cp_async16(&sg.dt[c][p_d], live ? from_d : delta, live);
+    }
+  } else {
+    for (int e = tid; e < len * kCh; e += kThreads) {
+      const int c = e / kCh, j = e - c * kCh;
+      const bool live = c < nt && d0 + j < dim;
+      const size_t off = xbase + size_t(t0 + c) * dim + j;
+      sg.x[c][j] = live ? x[off] : from_f32<T>(0.f);
+      sg.dt[c][j] = live ? delta[off] : 0.f;
     }
   }
 }
 
-template <typename T, int kMaxN>
+// kGroup steps from step c0 of a staged chunk: each thread advances its
+// states and leaves its share of y for every step in acc.  Steps past the
+// sequence are zeros (delta 0: the state stays), so no step is checked.
+template <typename T, int kMaxN, int kGroup>
+__device__ __forceinline__ void scan_group(
+    const Stage<T, kMaxN, kGroup>& sg, int c0, int ch, int s0, float skip,
+    const float (&a2)[kPer], float (&h)[kPer], float (&acc)[kGroup]) {
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) {
+    const int c = c0 + u;
+    const float xv = to_f32(sg.x[c][ch]);
+    const float dt = sg.dt[c][ch];
+    float bv[kPer], cv[kPer];
+    load_run<kPer>(&sg.b[c][s0], bv);
+    load_run<kPer>(&sg.c[c][s0], cv);
+    const float dx = dt * xv;
+    float sum = skip * xv;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      h[i] = fmaf(rec::exp2_sfu(dt * a2[i]), h[i], dx * bv[i]);
+      sum = fmaf(h[i], cv[i], sum);
+    }
+    acc[u] = sum;
+  }
+}
+
+// The shares of y of one group (steps t .. t + kGroup) meet across the
+// channel's lanes; the lane that ends up owning a value stores it, for
+// steps before `end`.
+template <typename T, int kMaxN, int kGroup>
+__device__ __forceinline__ void scan_store(float (&acc)[kGroup], int lane,
+                                           int t, int end,
+                                           T* __restrict__ y, size_t yoff,
+                                           int dim) {
+  constexpr int kLanes = Stage<T, kMaxN, kGroup>::kLanes;
+  constexpr int kOwn = kGroup >= kLanes ? kGroup / kLanes : 1;
+  int first = 0;
+  rec::reduce_scatter<kLanes, kGroup>(acc, lane, first);
+  if (rec::owns_sum<kLanes, kGroup>(lane)) {
+#pragma unroll
+    for (int q = 0; q < kOwn; ++q)
+      if (t + first + q < end)
+        y[yoff + size_t(t + first + q) * dim] = from_f32<T>(acc[q]);
+  }
+}
+
+template <typename T, int kMaxN, int kGroup>
 __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ delta,
     const float* __restrict__ a, const float* __restrict__ bm,
     const float* __restrict__ cm, const float* __restrict__ dskip,
     const float* __restrict__ h0, T* __restrict__ y,
-    float* __restrict__ h_out, int seq, int dim, int n) {
-  constexpr int kPer = kMaxN / kLanes;                    // states a thread
-  constexpr int kXLoads = kChunk * kChannels / kThreads;
-  constexpr int kBLoads = (kChunk * kMaxN + kThreads - 1) / kThreads;
-  constexpr int kStepStride = kThreads / kChannels;
-
-  __shared__ float2 xd_s[kChunk][kChannels];               // (x, delta)
-  __shared__ float y_s[kChunk][kChannels];
-  __shared__ __align__(16) float b_s[kChunk][kMaxN];
-  __shared__ __align__(16) float c_s[kChunk][kMaxN];
+    float* __restrict__ h_out, int seq, int dim, int n, int vec) {
+  using StageT = Stage<T, kMaxN, kGroup>;
+  constexpr int kLanes = StageT::kLanes;
+  constexpr int kCh = StageT::kChannels;
+  constexpr int kChunk = StageT::kChunk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  StageT* const stages = reinterpret_cast<StageT*>(smem);
 
   const int tid = threadIdx.x;
-  const int ch = tid / kLanes;          // the channel this thread computes
-  const int lane = tid % kLanes;
-  const int s0 = lane * kPer;           // its first state
-  const int d0 = blockIdx.x * kChannels;
+  const int lane = tid % 32;
+  const int ch = tid / kLanes;            // the channel this thread computes
+  const int s0 = (tid % kLanes) * kPer;   // its first state
+  const int d0 = blockIdx.x * kCh;
   const int bi = blockIdx.y;
   const int dch = d0 + ch;
   const bool live = dch < dim;
@@ -175,91 +221,58 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
     h[i] = on ? h0[(size_t(bi) * dim + dch) * n + s0 + i] : 0.f;
     a2[i] = on ? a[size_t(dch) * n + s0 + i] * kLog2e : 0.f;
   }
-  const float skip = live ? dskip[dch] : 0.f;
-
-  // the channel and first step this thread stages
-  const int lj = tid % kChannels;
-  const int lc = tid / kChannels;
-  const size_t row = size_t(dim);
-  const size_t xbase = size_t(bi) * seq * row + d0 + lj;
-  const size_t nbase = size_t(bi) * seq * n;
-  const bool lj_live = d0 + lj < dim;
-
-  T xr[kXLoads];
-  float dr[kXLoads], br[kBLoads], cr[kBLoads];
-  if (seq > 0)
-    fetch_chunk<T, kXLoads, kBLoads>(x, delta, bm, cm, xbase, nbase, row,
-                                     lj_live, lc, tid, 0, seq, n, xr, dr,
-                                     br, cr);
-  for (int t0 = 0; t0 < seq; t0 += kChunk) {
-    const int nt = min(kChunk, seq - t0);
-#pragma unroll
-    for (int k = 0; k < kXLoads; ++k)
-      xd_s[lc + k * kStepStride][lj] = make_float2(to_f32(xr[k]), dr[k]);
-    // B / C rows at a stride of kMaxN, so a thread's states are one run
-#pragma unroll
-    for (int k = 0; k < kBLoads; ++k) {
-      const int e = tid + k * kThreads;
-      if (e < nt * n) {
-        const int c = e / n;
-        b_s[c][e - c * n] = br[k];
-        c_s[c][e - c * n] = cr[k];
-      }
-    }
-    __syncthreads();
-    // the next chunk's loads are in flight while this one is computed
-    if (t0 + kChunk < seq)
-      fetch_chunk<T, kXLoads, kBLoads>(x, delta, bm, cm, xbase, nbase, row,
-                                       lj_live, lc, tid, t0 + kChunk, seq,
-                                       n, xr, dr, br, cr);
-    // kGroup steps at a time: the state updates run in order, but the
-    // exponentials and B/C products of the group do not wait on the
-    // state, and the group's y sums meet in one pipelined round of
-    // shuffles instead of a shuffle chain per step
-    for (int c0 = 0; c0 < nt; c0 += kGroup) {
-      float acc[kGroup];
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        const int c = c0 + u;
-        acc[u] = 0.f;
-        if (c < nt) {
-          const float2 xd = xd_s[c][ch];
-          const float dx = xd.y * xd.x;
-          float bv[kPer], cv[kPer];
-          load_run<kPer>(&b_s[c][s0], bv);
-          load_run<kPer>(&c_s[c][s0], cv);
-#pragma unroll
-          for (int i = 0; i < kPer; ++i) {
-            if (s0 + i < n) {
-              const float da = exp2_ftz(xd.y * a2[i]);
-              h[i] = fmaf(da, h[i], dx * bv[i]);
-              acc[u] = fmaf(h[i], cv[i], acc[u]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1) {
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u)
-          acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int u = 0; u < kGroup; ++u)
-          if (c0 + u < nt)
-            y_s[c0 + u][ch] = fmaf(skip, xd_s[c0 + u][ch].x, acc[u]);
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < nt * kChannels; e += kThreads) {
-      const int c = e / kChannels;
-      const int j = e % kChannels;
-      if (d0 + j < dim)
-        y[size_t(bi) * seq * row + size_t(t0 + c) * row + d0 + j] =
-            from_f32<T>(y_s[c][j]);
+  // D x joins the y sums on the channel's first lane
+  const float skip = live && s0 == 0 ? dskip[dch] : 0.f;
+  // states past n: B and C stay 0 in both stages
+  for (int e = tid; e < kStages * kChunk * kMaxN; e += kThreads) {
+    const int st = e / (kChunk * kMaxN), rem = e - st * kChunk * kMaxN;
+    const int c = rem / kMaxN, s = rem - c * kMaxN;
+    if (s >= n) {
+      stages[st].b[c][s] = 0.f;
+      stages[st].c[c][s] = 0.f;
     }
   }
+
+  const size_t xbase = size_t(bi) * seq * dim + d0;
+  const size_t nbase = size_t(bi) * seq * n;
+  const int chunks = (seq + kChunk - 1) / kChunk;
+  // groups run in pairs (a and b), and the y sums of one group meet while
+  // the next group computes; b first holds the pair before's second group
+  // (steps b_t .., stored up to b_end; a channel past dim stores nothing)
+  float acc_a[kGroup], acc_b[kGroup] = {};
+  int b_t = 0, b_end = 0;
+  const int end = live ? seq : 0;
+  const size_t yoff = xbase + ch;
+  // kStages - 1 chunks in flight ahead of the one computed
+  for (int ci = 0; ci < kStages - 1; ++ci) {
+    if (ci < chunks)
+      stage_chunk<T, kMaxN, kGroup>(stages[ci], x, delta, bm, cm, xbase,
+                                    nbase, dim, d0, n, ci * kChunk, seq, vec);
+    tc::cp_async_commit();
+  }
+  for (int ci = 0; ci < chunks; ++ci) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();   // chunk ci has landed; every thread is past ci - 1
+    const int t0 = ci * kChunk;
+    const int next = ci + kStages - 1;
+    if (next < chunks)
+      stage_chunk<T, kMaxN, kGroup>(stages[next % kStages], x, delta, bm, cm,
+                                    xbase, nbase, dim, d0, n, next * kChunk,
+                                    seq, vec);
+    tc::cp_async_commit();
+    const StageT& sg = stages[ci % kStages];
+    const int nt = min(kChunk, seq - t0);
+    for (int c0 = 0; c0 < nt; c0 += 2 * kGroup) {
+      scan_group<T, kMaxN, kGroup>(sg, c0, ch, s0, skip, a2, h, acc_a);
+      scan_store<T, kMaxN, kGroup>(acc_b, lane, b_t, b_end, y, yoff, dim);
+      scan_group<T, kMaxN, kGroup>(sg, c0 + kGroup, ch, s0, skip, a2, h,
+                                   acc_b);
+      scan_store<T, kMaxN, kGroup>(acc_a, lane, t0 + c0, end, y, yoff, dim);
+      b_t = t0 + c0 + kGroup;
+      b_end = end;
+    }
+  }
+  scan_store<T, kMaxN, kGroup>(acc_b, lane, b_t, b_end, y, yoff, dim);
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     if (live && s0 + i < n)
@@ -267,19 +280,44 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
   }
 }
 
-template <typename T, int kMaxN>
+template <typename T, int kMaxN, int kGroup>
 cudaError_t launch(const void* x, const void* delta, const void* a,
                    const void* b, const void* c, const void* d,
                    const void* h0, void* y, void* h_out, int batch, int seq,
                    int dim, int n, cudaStream_t stream) {
-  const dim3 grid((dim + kChannels - 1) / kChannels, batch);
-  selective_scan_kernel<T, kMaxN><<<grid, kThreads, 0, stream>>>(
+  constexpr int kCh = Stage<T, kMaxN, kGroup>::kChannels;
+  const int vec = dim % 8 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(delta)) % 16) == 0;
+  const size_t smem = kStages * sizeof(Stage<T, kMaxN, kGroup>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        selective_scan_kernel<T, kMaxN, kGroup>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((dim + kCh - 1) / kCh, batch);
+  selective_scan_kernel<T, kMaxN, kGroup><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(delta),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<const float*>(d),
       static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(h_out), seq, dim, n);
+      static_cast<float*>(h_out), seq, dim, n, vec);
   return cudaGetLastError();
+}
+
+// A call of a few steps (a decode step) meets its y sums every step; a
+// longer one every 8 steps.
+template <typename T, int kMaxN>
+cudaError_t launch_for(const void* x, const void* delta, const void* a,
+                       const void* b, const void* c, const void* d,
+                       const void* h0, void* y, void* h_out, int batch,
+                       int seq, int dim, int n, cudaStream_t stream) {
+  if (seq < 8)
+    return launch<T, kMaxN, 1>(x, delta, a, b, c, d, h0, y, h_out, batch,
+                               seq, dim, n, stream);
+  return launch<T, kMaxN, 8>(x, delta, a, b, c, d, h0, y, h_out, batch, seq,
+                             dim, n, stream);
 }
 
 template <typename T>
@@ -288,11 +326,11 @@ cudaError_t dispatch(const void* x, const void* delta, const void* a,
                      const void* h0, void* y, void* h_out, int batch,
                      int seq, int dim, int n, cudaStream_t stream) {
   if (n >= 1 && n <= 16)
-    return launch<T, 16>(x, delta, a, b, c, d, h0, y, h_out, batch, seq,
-                         dim, n, stream);
+    return launch_for<T, 16>(x, delta, a, b, c, d, h0, y, h_out, batch, seq,
+                             dim, n, stream);
   if (n > 16 && n <= 64)
-    return launch<T, 64>(x, delta, a, b, c, d, h0, y, h_out, batch, seq,
-                         dim, n, stream);
+    return launch_for<T, 64>(x, delta, a, b, c, d, h0, y, h_out, batch, seq,
+                             dim, n, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -53,3 +53,20 @@ def test_attention_kernels_include_the_shared_header():
         assert '#include "tc_attention.cuh"' in src.read_text()
     assert build.source_digest([src]) == build.source_digest(
         [src], build.COMMON_INCLUDE)
+
+
+def test_recurrence_kernels_include_the_shared_headers():
+    """Both recurrence sources include the common recurrence header, which
+    takes its cp.async copies from the header the attention kernels use
+    too; the default digest covers both headers."""
+    for header in ("recurrence.cuh", "cp_async.cuh"):
+        assert (build.COMMON_INCLUDE / header).is_file()
+    assert '#include "cp_async.cuh"' in (
+        build.COMMON_INCLUDE / "recurrence.cuh").read_text()
+    assert '#include "cp_async.cuh"' in (
+        build.COMMON_INCLUDE / "tc_attention.cuh").read_text()
+    for name in ("rwkv6_scan", "selective_scan"):
+        src = KERNELS / name / "csrc" / f"{name}.cu"
+        assert '#include "recurrence.cuh"' in src.read_text()
+        assert build.source_digest([src]) == build.source_digest(
+            [src], build.COMMON_INCLUDE)

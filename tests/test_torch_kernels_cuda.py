@@ -165,35 +165,75 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, t, h, kv, hd,
 
 
 # ------------------------------------------------------------------- wkv
+def _wkv_inputs(seed, b, s, h, hd):
+    """r/k/v/w (w in (0.45, 0.95)), u and a random initial state, f32."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, s, h, hd)) * 0.5 for _ in range(3))
+    w = 0.45 + 0.5 / (1 + np.exp(-rng.standard_normal((b, s, h, hd))))
+    u = rng.standard_normal((h, hd)) * 0.5
+    s0 = rng.standard_normal((b, h, hd, hd)) * 0.1
+    return [torch.from_numpy(a.astype(np.float32)) for a in (r, k, v, w, u,
+                                                             s0)]
+
+
+def _check_wkv(seq, u, s0, tol):
+    from repro_torch.kernels.rwkv6_scan import kernel as wkernel
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    before = wkernel.launches
+    y, sf = rwkv6_scan(*seq, u, s0, impl="kernel")
+    torch.cuda.synchronize()
+    assert wkernel.launches == before + 1
+    assert y.dtype == seq[0].dtype and sf.dtype == torch.float32
+    yr, sr = rwkv6_scan(*seq, u, s0, impl="ref")
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(sf.cpu().numpy(), sr.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,hd,dtype,tol", [
     (1, 300, 32, 64, torch.float32, 1e-4),
     (8, 1, 32, 64, torch.float32, 1e-4),
     (2, 33, 4, 32, torch.float32, 1e-4),
     (1, 64, 4, 64, torch.bfloat16, 1e-2),
+    # the column-tile geometry's edges: every head width, S off the
+    # 64-step chunk and the 16-step pair of groups, B = 3 x H = 5 blocks
+    (1, 1000, 32, 64, torch.float32, 1e-4),
+    (3, 33, 5, 16, torch.float32, 1e-4),
+    (3, 1000, 5, 32, torch.float32, 1e-4),
+    (3, 33, 5, 128, torch.float32, 1e-4),
+    (1, 7, 2, 128, torch.float32, 1e-4),
+    (3, 33, 5, 16, torch.bfloat16, 1e-2),
+    (2, 70, 3, 128, torch.bfloat16, 1e-2),
+    # calls of fewer than 8 steps at hd <= 64 take the column-per-thread
+    # kernel
+    (4, 5, 3, 16, torch.float32, 1e-4),
+    (4, 3, 3, 32, torch.bfloat16, 1e-2),
 ])
 def test_wkv_kernel_matches_plain_version(cuda_device, b, s, h, hd, dtype,
                                           tol):
-    from repro_torch.kernels.rwkv6_scan import kernel as wkernel
-    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
-    rng = np.random.default_rng(s * 10 + hd)
-    r, k, v = (rng.standard_normal((b, s, h, hd)) * 0.5 for _ in range(3))
-    w = 0.45 + 0.5 / (1 + np.exp(-rng.standard_normal((b, s, h, hd))))
-    u = rng.standard_normal((h, hd)) * 0.5
-    s0 = rng.standard_normal((b, h, hd, hd)) * 0.1
-    seq = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
-           for a in (r, k, v, w)]
-    u, s0 = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
-             for a in (u, s0))
-    before = wkernel.launches
-    y, sf = rwkv6_scan(*seq, u, s0, impl="kernel")
-    torch.cuda.synchronize()
-    assert wkernel.launches == before + 1
-    yr, sr = rwkv6_scan(*seq, u, s0, impl="ref")
-    np.testing.assert_allclose(y.float().cpu().numpy(),
-                               yr.float().cpu().numpy(), rtol=tol, atol=tol)
-    np.testing.assert_allclose(sf.cpu().numpy(), sr.cpu().numpy(),
-                               rtol=1e-4, atol=1e-4)
+    r, k, v, w, u, s0 = _wkv_inputs(s * 10 + hd, b, s, h, hd)
+    seq = [t.to(cuda_device, dtype) for t in (r, k, v, w)]
+    _check_wkv(seq, u.to(cuda_device), s0.to(cuda_device), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_wkv_kernel_misaligned_inputs(cuda_device, dtype, tol):
+    """Contiguous views that start off a 16-byte boundary are staged
+    element by element, to the same result."""
+    b, s, h, hd = 2, 45, 3, 64
+    r, k, v, w, u, s0 = _wkv_inputs(11, b, s, h, hd)
+    seq = []
+    for t in (r, k, v, w):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t.to(dtype))
+        assert view.data_ptr() % 16 != 0
+        seq.append(view)
+    _check_wkv(seq, u.to(cuda_device), s0.to(cuda_device), tol)
 
 
 # ------------------------------------------------------------ selective scan
@@ -219,6 +259,15 @@ def _scan_inputs(seed, b, s, d, n, x_dtype, device):
     (2, 37, 100, 8, torch.float32, 1e-4),     # ragged S, D off the block
     (1, 70, 256, 40, torch.float32, 1e-4),    # the wide-state build
     (1, 130, 512, 16, torch.bfloat16, 1e-2),  # y rounded to bf16
+    # the channel tile's edges: D off the tile, every state count's
+    # padding, one step
+    (1, 70, 8200, 16, torch.bfloat16, 1e-2),
+    (2, 45, 8200, 16, torch.float32, 1e-4),
+    (2, 50, 96, 1, torch.float32, 1e-4),
+    (2, 50, 104, 13, torch.float32, 1e-4),
+    (1, 40, 72, 64, torch.float32, 1e-4),
+    (3, 1, 8200, 64, torch.bfloat16, 1e-2),
+    (3, 1, 100, 13, torch.float32, 1e-4),
 ])
 def test_scan_kernel_matches_plain_version(cuda_device, b, s, d, n, dtype,
                                            tol):
@@ -231,6 +280,36 @@ def test_scan_kernel_matches_plain_version(cuda_device, b, s, d, n, dtype,
     assert skernel.launches == before + 1
     assert y.dtype == dtype and hf.dtype == torch.float32
     yr, hr = selective_scan(*args, impl="ref")
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(hf.cpu().numpy(), hr.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_scan_kernel_exponent_range(cuda_device, dtype, tol):
+    """delta * A spans the whole range that reaches 2^x, from 0 down past
+    -126 (log2 units), where the special-function unit's 2^x flushes to
+    0 and the state is only the new input, while the plain version's exp
+    passes through denormals."""
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    b, s, d, n = 2, 96, 160, 16
+    x, dt, a, bm, cm, dd, h0 = _scan_inputs(17, b, s, d, n, dtype,
+                                            cuda_device)
+    rng = np.random.default_rng(18)
+    # A from -0.01 to -1000; delta from 0 to 1
+    a = -torch.from_numpy(np.exp(rng.uniform(np.log(0.01), np.log(1000.0),
+                                             (d, n))).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0, 1, (b, s, d)).astype(np.float32))
+    a, dt = a.to(cuda_device), dt.to(cuda_device)
+    e = (dt[..., None] * a * 1.4426950408889634).flatten()
+    assert float(e.min()) < -200 and float(e.max()) > -0.05
+    assert float((e < -126).float().mean()) > 0.1
+    y, hf = selective_scan(x, dt, a, bm, cm, dd, h0, impl="kernel")
+    torch.cuda.synchronize()
+    yr, hr = selective_scan(x, dt, a, bm, cm, dd, h0, impl="ref")
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                yr.float().cpu().numpy(), rtol=tol, atol=tol)
     np.testing.assert_allclose(hf.cpu().numpy(), hr.cpu().numpy(),
