@@ -41,7 +41,18 @@ on its own line:
    (TF32 off), identical tokens for the paged and dense StableLM engines
    with kernels against plain versions, dense against paged, and the
    RWKV-6 and Jamba (one Mamba + MoE layer and the attention layer) dense
-   engines with the kernels against the plain versions.
+   engines with the kernels against the plain versions;
+6. the multi-tenant harness (gateway, actuator, controller, admission)
+   serving full-width StableLM-3B in bf16 through
+   ``repro_torch.launch.serve``: (a) the paper's experiment, 2 latency
+   tenants x 2 dense replicas beside the ETL and trainer background
+   tenants, interference and the gateway's backpressure on, with the
+   controller and then without it (same seed); (b) cache-aware routing,
+   1 tenant x 2 paged replicas with the response cache; (c) run (a) twice
+   with the deterministic step-cost model, which must give identical
+   outputs, controller actions and gateway counters.  The controller must
+   act in (a) and not without it, and flash and paged attention must
+   launch during the phase.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -90,7 +101,7 @@ def device_info(torch) -> dict:
     info = {"nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0]}
-    log(f"[1/5] device: {info['kind']} x{info['count']}, torch "
+    log(f"[1/6] device: {info['kind']} x{info['count']}, torch "
         f"{info['torch']}, CUDA {info['cuda']}, python {info['python']}")
     log(smi)
     return info
@@ -147,7 +158,7 @@ def build_kernels() -> dict:
         mma = tensor_core_count(b.path)
         out[name] = {"so": b.path.name, "build_s": b.build_s,
                      "ptxas": ptxas, "tensor_core_sass": mma}
-        log(f"[2/5] built {name}: {b.path.name} in {b.build_s:.1f}s; "
+        log(f"[2/6] built {name}: {b.path.name} in {b.build_s:.1f}s; "
             f"tensor-core instructions in its SASS: HMMA {mma['HMMA']}, "
             f"HGMMA {mma['HGMMA']}")
         for ln in ptxas:
@@ -155,7 +166,7 @@ def build_kernels() -> dict:
         if name in TENSOR_CORE_KERNELS and not sum(mma.values()):
             raise AssertionError(f"{name}: no tensor-core instruction in "
                                  f"{b.path.name}")
-    log(f"[2/5] all kernels built in {time.perf_counter() - t0:.1f}s")
+    log(f"[2/6] all kernels built in {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -376,7 +387,7 @@ def check_kernels(torch) -> dict:
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "ops": ops}
         results.append(res)
-        log(f"[3/5] paged_attention_mixed {name}: B={q.shape[0]} "
+        log(f"[3/6] paged_attention_mixed {name}: B={q.shape[0]} "
             f"Q={q.shape[1]} "
             f"H={heads} KV={kv} hd={hd}: max_abs_err {err:.3g} (tol {tol})"
             f"{extra}; kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
@@ -482,7 +493,7 @@ def check_flash(torch) -> list:
                "ops": ops}
         results.append(res)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)"
-        log(f"[3/5] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
+        log(f"[3/6] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
             f"hd={hd}: max_abs_err {err:.3g} (tol {tol}); kernel {ms:.4f} "
             f"ms (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa {lib}, "
             f"bound "
@@ -573,7 +584,7 @@ def check_wkv(torch) -> list:
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops}
         results.append(res)
-        log(f"[3/5] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
+        log(f"[3/6] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
             f"{s_err:.3g} (rtol = atol = 1e-4); kernel {ms:.4f} ms (eager "
             f"{eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
@@ -720,7 +731,7 @@ def check_scan(torch) -> list:
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops, "sfu_exp_ms": exp_ms}
         results.append(res)
-        log(f"[3/5] selective_scan {name}: B={b} S={s} D={d} N={n}: "
+        log(f"[3/6] selective_scan {name}: B={b} S={s} D={d} N={n}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
             f"{h_err:.3g} (rtol = atol = 1e-4){extra}; kernel {ms:.4f} ms "
             f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
@@ -773,12 +784,15 @@ def serve_full_width(torch) -> dict:
         torch.cuda.empty_cache()
         zero_counts()
         t0 = time.perf_counter()
-        out = serve(arch=arch, backend=backend, reduce=False, qps=20.0,
+        run = serve(arch=arch, backend=backend, reduce=False, qps=20.0,
                     prompt_len=64, prompt_len_max=1024, slots=8,
-                    seq_cap=2048, seed=0, device="cuda", **kw)
+                    seq_cap=2048, seed=0, device="cuda",
+                    with_controller=False, **kw)
         wall = time.perf_counter() - t0
         counts = read_counts()
+        out = dict(run["T1"], peak_mem_bytes=run["device"]["peak_mem_bytes"])
         out.pop("outputs")
+        out.pop("ttft_by_id")
         checks = {}
         for kname in knames:
             mixer, passes_key = KERNEL_PATH[kname]
@@ -791,7 +805,7 @@ def serve_full_width(torch) -> dict:
         launched = ", ".join(
             f"{k} launches {n} ({p} {kind} passes x {lay} {KERNEL_PATH[k][0]}"
             f" layers)" for k, (n, p, lay, kind) in checks.items())
-        log(f"[4/5] serve {tag} full width ({out['layers']} layers): "
+        log(f"[4/6] serve {tag} full width ({out['layers']} layers): "
             f"completed {out['completed']}/{out['offered']}, {out['steps']} "
             f"steps, TTFT p50 {out['ttft_p50_ms']:.2f} ms p99 "
             f"{out['ttft_p99_ms']:.2f} ms, ITL p50 {out['itl_p50_ms']:.2f} "
@@ -876,7 +890,7 @@ def engine_parity(torch) -> dict:
                 and not any(runs[(be, "ref")][2][k] for be in
                             ("paged", "dense") for k in runs[(be, "ref")][2]))
     for name, same in checks.items():
-        log(f"[5/5] engine parity, stablelm_3b full width x 2 layers, "
+        log(f"[5/6] engine parity, stablelm_3b full width x 2 layers, "
             f"float32 ({tf32}): {name}, {n_tok} tokens over "
             f"{len(PARITY_TRACE)} requests ({kinds.count('mixed')} mixed "
             f"steps of {len(kinds)} paged), identical={same}")
@@ -890,7 +904,7 @@ def engine_parity(torch) -> dict:
     same = rk[0] == rr[0]
     launched = (launched and rk[2]["rwkv6_scan"] > 0
                 and rr[2]["rwkv6_scan"] == 0)
-    log(f"[5/5] engine parity, rwkv6_1_6b full width x 2 layers, float32 "
+    log(f"[5/6] engine parity, rwkv6_1_6b full width x 2 layers, float32 "
         f"({tf32}): dense kernel vs plain, "
         f"{sum(len(o) for o in rr[0])} tokens over {len(PARITY_TRACE)} "
         f"requests, {rk[2]['rwkv6_scan']} scan launches, identical={same}")
@@ -910,7 +924,7 @@ def engine_parity(torch) -> dict:
     launched = (launched and jk[2]["selective_scan"] > 0
                 and jk[2]["flash_attention"] > 0
                 and not any(jr[2].values()))
-    log(f"[5/5] engine parity, jamba_v0_1_52b full width, period cut to "
+    log(f"[5/6] engine parity, jamba_v0_1_52b full width, period cut to "
         f"(mamba+moe, attn+dense), float32 ({tf32}): dense kernel vs "
         f"plain, {sum(len(o) for o in jr[0])} tokens over "
         f"{len(PARITY_TRACE)} requests, {jk[2]['selective_scan']} scan and "
@@ -924,6 +938,129 @@ def engine_parity(torch) -> dict:
     if bad:
         raise AssertionError(f"tokens differ: {bad}")
     return out
+
+
+# ------------------------------------------------------------------ phase 6
+# full-width StableLM-3B in bf16 behind the harness; prompts of 256-1024
+# tokens, 16 new tokens, 4 lanes a replica.  40 requests a tenant at 10
+# qps keep a dense replica (~3 requests/s at full width) loaded past its
+# TTFT SLO for several one-second controller samples.
+HARNESS = dict(arch="stablelm_3b", reduce=False, prompt_len=256,
+               prompt_len_max=1024, max_new=16, slots=4, seq_cap=2048,
+               seed=0, device="cuda", verbose=False)
+EXPERIMENT = dict(num_tenants=2, replicas=2, interfere=True, listen=True,
+                  requests=40, qps=10.0)
+ROUTING = dict(num_tenants=1, replicas=2, backend="paged", route="cache",
+               response_cache=True, requests=24, qps=10.0)
+_FLEET = ("routing", "directory", "response_cache", "admission", "actions",
+          "arbiter_max_units", "gateway", "prometheus", "device")
+
+
+def harness_run(torch, smi: str, tag: str, weights, **kw) -> dict:
+    """One serve() of the harness with its launches; prints one line per
+    tenant and one for the fleet, each beside the card and power limit."""
+    from repro_torch.launch.serve import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = serve(**HARNESS, **kw, params=weights)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    names = [k for k in out if k not in _FLEET]
+    for name in names:
+        o = out[name]
+        log(f"[6/6] ({smi}) {tag} {name}: completed {o['completed']} / "
+            f"offered {o['offered']} / shed {o['shed']} / rejected "
+            f"{o['rejected']} {o['reject_reasons']} / expired "
+            f"{o['expired']}, TTFT p50 {o['ttft_p50_ms']:.2f} ms p99 "
+            f"{o['ttft_p99_ms']:.2f} ms, ITL p99 {o['itl_p99_ms']:.2f} ms, "
+            f"{o['steps']} steps, measured compute {o['compute_s']:.3f} s, "
+            f"logits_finite={o['logits_finite']}")
+    log(f"[6/6] ({smi}) {tag} fleet: actions {out.get('actions')}, "
+        f"arbiter_max_units {out.get('arbiter_max_units')}, routing "
+        f"{out['routing']}, directory {out.get('directory')}, response "
+        f"cache {out.get('response_cache')}, virtual "
+        f"{out['device']['virtual_s']:.3f} s, wall {wall:.1f} s, peak "
+        f"memory {out['device']['peak_mem_bytes'] / 2**30:.2f} GiB, "
+        f"launches {counts}")
+    if not kw.get("det_timing"):
+        for name in names:
+            out[name].pop("outputs")
+    out["launches"] = counts
+    out["wall_s"] = wall
+    out.pop("prometheus")
+    for name in names:
+        if not out[name]["logits_finite"]:
+            raise AssertionError(f"{tag} {name}: non-finite logits")
+        if not out[name]["completed"]:
+            raise AssertionError(f"{tag} {name}: nothing completed")
+    return out
+
+
+def harness(torch, smi: str) -> dict:
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+
+    # every run serves the weights serve() would draw from each tenant's
+    # engine seed; drawn once and shared by the runs
+    cfg = get_config(HARNESS["arch"])
+    cache = {}
+
+    def weights(tenant, seed):
+        if seed not in cache:
+            cache[seed] = Model(cfg, seed=seed,
+                                device=HARNESS["device"]).params
+        return cache[seed]
+
+    runs = {
+        "(a) controller on": harness_run(torch, smi, "(a) controller on",
+                                         weights, **EXPERIMENT),
+        "(a) controller off": harness_run(torch, smi, "(a) controller off",
+                                          weights, with_controller=False,
+                                          **EXPERIMENT),
+        "(b) paged routing": harness_run(torch, smi, "(b) paged routing",
+                                         weights, **ROUTING),
+    }
+    det = [harness_run(torch, smi, f"(c) det_timing run {i}", weights,
+                       det_timing=True, **EXPERIMENT) for i in (1, 2)]
+    runs["(c) det_timing"] = det[0]
+    cache.clear()
+    on, off = runs["(a) controller on"], runs["(a) controller off"]
+    names = [k for k in det[0] if k.startswith("L")]
+    same = {
+        "outputs": [d[n]["outputs"] for d in det for n in names],
+        "ttft_by_id": [d[n]["ttft_by_id"] for d in det for n in names],
+        "actions": [d.get("actions") for d in det],
+        "gateway": [d["gateway"] for d in det],
+    }
+    identical = {k: v[:len(v) // 2] == v[len(v) // 2:]
+                 for k, v in same.items()}
+    for n in names:
+        det[0][n].pop("outputs")
+    flash = sum(r["launches"]["flash_attention"] for r in
+                (on, off, *det))
+    paged = runs["(b) paged routing"]["launches"]["paged_attention_mixed"]
+    checks = {
+        "controller acted in (a)": sum(on["actions"].values()) >= 1,
+        "no actions without the controller": "actions" not in off,
+        "arbiter within 7 units": on["arbiter_max_units"] <= 7,
+        "det_timing runs identical": all(identical.values()),
+        "flash launched on the dense runs": flash > 0,
+        "paged attention launched on the paged run": paged > 0,
+        "cache-routed requests": runs["(b) paged routing"]["routing"]["T1"][
+            "routed_cache"] > 0,
+    }
+    log(f"[6/6] ({smi}) det_timing runs identical: {identical}; flash "
+        f"launches over the dense runs {flash}, paged launches {paged}")
+    for name, ok in checks.items():
+        log(f"[6/6] check {name}: {ok}")
+    runs["checks"] = checks
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"harness checks failed: {bad}")
+    return runs
 
 
 def main() -> int:
@@ -944,6 +1081,7 @@ def main() -> int:
     report["kernels"]["selective_scan"] = check_scan(torch)
     report["serve"] = serve_full_width(torch)
     report["parity"] = engine_parity(torch)
+    report["harness"] = harness(torch, report["device"]["nvidia_smi"])
     report["total_s"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -23,8 +23,12 @@ token: the slot merge and every decode write go IN PLACE into the stacked
 cache (the JAX code builds a new cache); the timed region of a prefill
 covers the merge into the slot cache; a request whose prompt+max_new
 exceeds ``seq_cap`` is refused (``EXCEEDS_SEQ_CAP``) where the reference
-would write past the cache.  ``set_quota`` comes with the controller
-(ROADMAP A5): the quota stays 1.0.
+would write past the cache.
+
+Guardrail hook (paper §2.2, MPS-quota analogue): ``set_quota(frac)`` caps
+the engine's concurrency, as in the reference: the number of active decode
+slots (dense) or running lanes (paged) scales with the quota, bounding
+occupancy the way CUDA_MPS_ACTIVE_THREAD_PERCENTAGE bounds SM occupancy.
 """
 from __future__ import annotations
 
@@ -125,15 +129,21 @@ class ServingEngine:
             raise ValueError(
                 "speculative decode lanes (spec_k) need the paged "
                 "runtime's ragged verify step; use backend='paged'")
-        if response_cache is not None and response_cache is not False:
-            if backend == "dense":
-                raise ValueError(
-                    "the response cache primes speculative draft hints at "
-                    "submit, which needs the paged scheduler; use "
-                    "backend='paged'")
-            raise NotImplementedError(
-                "the response cache (serving/directory.py) is not ported "
-                "yet (ROADMAP A5)")
+        if response_cache is not None and response_cache is not False \
+                and backend == "dense":
+            raise ValueError(
+                "the response cache primes speculative draft hints at "
+                "submit, which needs the paged scheduler; use "
+                "backend='paged'")
+        # response_cache: None/False = off, True = a private cache, or a
+        # serving/directory.ResponseCache shared by a tenant's replicas.
+        # Identity checks, not truthiness: an empty cache is falsy.
+        if response_cache is True:
+            from repro_torch.serving.directory import ResponseCache
+            response_cache = ResponseCache()
+        elif response_cache is False:
+            response_cache = None
+        self.response_cache = response_cache
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg, params, seed=seed, device=self.device)
@@ -159,8 +169,13 @@ class ServingEngine:
                 page_size=page_size, pool_pages=pool_pages,
                 chunk_tokens=chunk_tokens, attn_impl=attn_impl,
                 kv_dtype=kv_dtype, prefix_cache=prefix_cache, spec_k=spec_k,
-                seed=seed, device=self.device)
+                response_cache=self.response_cache, seed=seed,
+                device=self.device)
             self.kv = self.runtime.kv
+            # the scheduler's waiting deque doubles as the engine queue
+            # (the same object for the engine's lifetime), so load-based
+            # dispatch reads ``len(engine.queue)`` on either backend
+            self.queue = self.runtime.queue
             return
         self.runtime = None
         self._rng = np.random.default_rng(seed)
@@ -176,6 +191,11 @@ class ServingEngine:
                                           self.device)
 
     # ------------------------------------------------------------------ API
+    def set_quota(self, frac: float) -> None:
+        self.quota = float(np.clip(frac, 0.1, 1.0))
+        if self.runtime is not None:
+            self.runtime.set_budget(self.active_slot_budget)
+
     @property
     def active_slot_budget(self) -> int:
         return max(1, int(np.ceil(self.quota * self.max_slots)))
@@ -204,6 +224,11 @@ class ServingEngine:
                          req.prompt_len + req.max_new_tokens)
         self.queue.append(req)
         return ADMITTED
+
+    def active(self) -> List[Request]:
+        if self.runtime is not None:
+            return self.runtime.running()
+        return [r for r in self.slots if r is not None]
 
     def has_work(self) -> bool:
         if self.runtime is not None:

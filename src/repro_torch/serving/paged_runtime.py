@@ -125,7 +125,8 @@ class PagedRuntime:
                  pool_pages: Optional[int] = None,
                  chunk_tokens: Optional[int] = None, attn_impl: str = "auto",
                  kv_dtype: str = "auto", prefix_cache: bool = True,
-                 spec_k: int = 0, seed: int = 0, device="cuda"):
+                 spec_k: int = 0, response_cache=None, seed: int = 0,
+                 device="cuda"):
         reason = paged_unsupported_reason(cfg)
         if reason is not None:
             raise ValueError(
@@ -153,7 +154,8 @@ class PagedRuntime:
                                enable_prefix_cache=prefix_cache)
         self.sched = PagedScheduler(
             self.kv, SchedConfig(chunk_tokens=self.chunk,
-                                 max_active=max_slots, spec_k=spec_k))
+                                 max_active=max_slots, spec_k=spec_k),
+            response_cache=response_cache)
         self.pools = self._init_pools()
         self._layers = self._layer_walk()
         self._rng = np.random.default_rng(seed)
@@ -282,6 +284,16 @@ class PagedRuntime:
 
     def has_work(self) -> bool:
         return self.sched.has_work()
+
+    def running(self) -> List[Request]:
+        return self.sched.running()
+
+    @property
+    def queue(self):
+        return self.sched.waiting
+
+    def set_budget(self, n: int) -> None:
+        self.sched.set_budget(n)
 
     def drain_for_redrive(self) -> List[Request]:
         return self.sched.drain_for_redrive()

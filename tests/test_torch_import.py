@@ -1,6 +1,7 @@
-"""The port stands alone: it imports and serves with JAX absent, none of
-its modules (nor chip_smoke.py) imports ``jax`` or the JAX package, and
-its CPU path never touches the CUDA kernel."""
+"""The port stands alone: it imports and serves with JAX and networkx
+absent, none of its modules (nor chip_smoke.py) imports ``jax``,
+``networkx`` or the JAX package, and its CPU path never touches the CUDA
+kernel."""
 import ast
 import os
 import pathlib
@@ -27,6 +28,10 @@ def _run(code: str) -> str:
 
 def test_every_module_imports_with_jax_absent():
     mods = _modules()
+    for m in ("core.controller", "core.admission", "core.topology",
+              "core.ledger", "core.faults", "sim.cluster", "sim.params",
+              "serving.gateway", "serving.actuator", "serving.directory"):
+        assert f"repro_torch.{m}" in mods
     assert "repro_torch.serving.paged_runtime" in mods
     assert "repro_torch.models.rwkv" in mods
     assert "repro_torch.models.ssm" in mods
@@ -36,6 +41,7 @@ def test_every_module_imports_with_jax_absent():
     out = _run(
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['networkx'] = None\n"
         "import importlib\n"
         "import repro_torch\n"
         f"for m in {mods!r}:\n"
@@ -65,7 +71,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = {str(f.relative_to(ROOT)): sorted(
         r for r in set(_imported_roots(f))
-        if r in ("jax", "jaxlib", "repro", "ml_dtypes"))
+        if r in ("jax", "jaxlib", "repro", "ml_dtypes", "networkx"))
         for f in files}
     assert {f: r for f, r in bad.items() if r} == {}
     # the configs' lazy registry import names the port's own package
@@ -76,6 +82,7 @@ def test_cpu_auto_path_never_touches_the_kernel():
     out = _run(
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['networkx'] = None\n"
         "from repro_torch.kernels.flash_attention import kernel as fa\n"
         "from repro_torch.kernels.paged_attention import kernel as pa\n"
         "from repro_torch.kernels.rwkv6_scan import kernel as wkv\n"
@@ -86,8 +93,8 @@ def test_cpu_auto_path_never_touches_the_kernel():
         " ('jamba_v0_1_52b', 'dense')):\n"
         "    r = serve(arch=arch, backend=backend, requests=3, qps=100.0,"
         " max_new=3, device='cpu', verbose=False)\n"
-        "    assert r['completed'] == 3, r\n"
-        "    assert r['forward_passes'] > 0\n"
+        "    assert r['T1']['completed'] == 3, r\n"
+        "    assert r['T1']['forward_passes'] > 0\n"
         "for kernel in (fa, pa, wkv, scan):\n"
         "    assert kernel.launches == 0\n"
         "    assert kernel.build.cache_info().currsize == 0\n"

@@ -1,6 +1,10 @@
 """The port's serve entry point on the CPU: the virtual-time loop completes
 every request with the reference's metrics, the warm-up stays out of them,
-and the reference harness's flags that are not ported yet are refused."""
+the CLI hands the reference's flags to serve() as the reference's CLI
+does, and the flags that are not ported yet are refused."""
+import re
+import sys
+
 import pytest
 
 from repro_torch.launch import serve as serve_mod
@@ -8,8 +12,9 @@ from repro_torch.launch.serve import serve
 
 
 def test_serve_completes_every_request_on_cpu():
-    out = serve(requests=5, qps=20.0, prompt_len=24, prompt_len_max=40,
+    run = serve(requests=5, qps=20.0, prompt_len=24, prompt_len_max=40,
                 max_new=4, device="cpu", verbose=False)
+    out = run["T1"]
     assert out["completed"] == out["offered"] == 5
     assert out["rejected"] == 0
     assert all(len(t) == 4 for t in out["outputs"].values())
@@ -19,28 +24,64 @@ def test_serve_completes_every_request_on_cpu():
     assert out["tokens_per_s"] > 0
     # the warm-up drain ran forward passes that the step count leaves out
     assert out["forward_passes"] > out["steps"] > 0
-    assert out["peak_mem_bytes"] is None        # not a device number
+    assert run["device"]["peak_mem_bytes"] is None   # not a device number
 
 
 def test_serve_is_deterministic_and_serves_spec_lanes():
     a = serve(requests=3, qps=50.0, max_new=3, device="cpu", verbose=False)
     b = serve(requests=3, qps=50.0, max_new=3, device="cpu", verbose=False)
-    assert a["outputs"] == b["outputs"]
+    assert a["T1"]["outputs"] == b["T1"]["outputs"]
     c = serve(requests=3, qps=50.0, max_new=3, device="cpu", verbose=False,
               spec_k=2, kv_dtype="int8", backend="paged")
-    assert c["completed"] == 3
+    assert c["T1"]["completed"] == 3
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--tenants", "2"], "A5"), (["--replicas", "2"], "A5"),
-    (["--interfere"], "A5"), (["--listen"], "A5"), (["--admit", "1"], "A5"),
-    (["--route", "cache"], "A5"), (["--chaos"], "A5"),
-    (["--migrate"], "A5"), (["--trace"], "A5"),
-    (["--trace-out=t.json"], "A5"),
+    (["--chaos"], "A5.2"), (["--migrate"], "A5.2"), (["--trace"], "A5.2"),
+    (["--trace-out=t.json"], "A5.2"), (["--no-recover"], "A5.2"),
+    (["--drain-at", "0.02:T1:1"], "A5.2"),
 ])
 def test_cli_refuses_unported_flags(flags, match):
     with pytest.raises(SystemExit, match=match):
         serve_mod.main(["--device", "cpu", *flags])
+
+
+# serve() arguments that only one of the two CLIs has: the reference's
+# chaos / migration / tracing (ROADMAP A5.2), and the port's own
+_REF_ONLY = {"trace", "trace_out", "chaos", "chaos_seed", "recover",
+             "migrate", "drains"}
+_PORT_ONLY = {"prompt_len_max", "seq_cap", "reduce", "repeats", "device"}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--tenants", "2"], ["--replicas", "2"], ["--interfere"],
+    ["--listen", "--door-queue", "3", "--door-deadline-ms", "50"],
+    ["--admit", "1"],
+    ["--route", "load", "--route-imbalance", "2", "--backend", "paged"],
+])
+def test_cli_serves_the_ported_flags_as_the_reference(monkeypatch, capsys,
+                                                      flags):
+    """The flags the port now serves reach serve() with the values the
+    reference's CLI gives them, and the port's CLI serves them."""
+    import repro.launch.serve as ref_mod
+    calls = {}
+    monkeypatch.setattr(ref_mod, "serve",
+                        lambda **kw: calls.setdefault("ref", kw))
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
+    ref_mod.main()
+    monkeypatch.setattr(serve_mod, "serve",
+                        lambda **kw: calls.setdefault("port", kw))
+    serve_mod.main(["--device", "cpu", *flags])
+    ref, port = calls["ref"], calls["port"]
+    assert set(ref) - _REF_ONLY == set(port) - _PORT_ONLY
+    assert {k: port[k] for k in set(ref) - _REF_ONLY} == \
+        {k: v for k, v in ref.items() if k not in _REF_ONLY}
+    monkeypatch.undo()
+    serve_mod.main(["--device", "cpu", "--requests", "3", "--max-new", "2",
+                    "--qps", "50", *flags])
+    lines = re.findall(r"completed (\d+)/(\d+)", capsys.readouterr().out)
+    assert len(lines) >= port["num_tenants"]
+    assert all(done == offered == "3" for done, offered in lines)
 
 
 @pytest.mark.parametrize("flags,tag", [
@@ -66,9 +107,9 @@ def test_serve_keeps_a_deep_random_rwkv_stack_finite(monkeypatch):
                         lambda cfg: shallow(cfg).replace(repeats=8))
     out = serve(arch="rwkv6_1_6b", requests=3, qps=50.0, prompt_len=24,
                 prompt_len_max=64, max_new=4, device="cpu", verbose=False)
-    assert out["completed"] == 3
-    assert out["logits_finite"]
-    assert out["forward_passes"] > 0
+    assert out["T1"]["completed"] == 3
+    assert out["T1"]["logits_finite"]
+    assert out["T1"]["forward_passes"] > 0
 
 
 def test_backend_refusals_match_the_reference():
@@ -108,8 +149,8 @@ def test_repeats_cut_the_depth_of_a_config(capsys):
     assert round(param_bytes(jplan) / 2**30, 1) == 48.5
     out = serve(arch="jamba_v0_1_52b", repeats=3, requests=2, qps=50.0,
                 max_new=2, device="cpu", verbose=False)
-    assert out["layers"] == 6 and out["completed"] == 2
-    assert out["logits_finite"]
+    assert out["T1"]["layers"] == 6 and out["T1"]["completed"] == 2
+    assert out["T1"]["logits_finite"]
     serve_mod.main(["--device", "cpu", "--arch", "jamba_v0_1_52b",
                     "--repeats", "2", "--requests", "2", "--max-new", "2",
                     "--qps", "50"])
