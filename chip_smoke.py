@@ -19,7 +19,10 @@ on its own line:
    with ragged rows, pad rows, poisoned pages past the lengths, int8
    pages, GQA and a chunk past one 64-row query tile; flash attention:
    StableLM's prefill and the ragged, end-aligned, non-causal,
-   windowed/softcapped GQA and head_dim-72 cases; the WKV scan: RWKV-6
+   windowed/softcapped GQA and head_dim-72 cases, then the head_dim-128
+   geometries of phase 4's serves: OLMo 2's MHA, StarCoder2's group of
+   9, Gemma 2's global and windowed layers with softcap 50 and Granite's
+   group of 4; paged attention at OLMo 2's H = KV = 32 too; the WKV scan: RWKV-6
    prefill and decode, a ragged S, bf16 inputs and the other head widths
    at ragged B, H and S; the selective scan: Jamba's Mamba prefill with
    bf16 and f32 x, a ragged S, decode, two chained halves, D off the
@@ -34,9 +37,13 @@ on its own line:
    StableLM-3B on the paged engine (bf16, then int8 page pools), then
    StableLM-3B, RWKV-6 1.6B and Jamba v0.1 (its published widths, depth
    cut to two repeats of its 8-layer period, 16 layers) on the dense
-   slot-cache engine; every request must complete with finite logits, and
-   every pass must go through each of the path's kernels once per layer
-   of the kernel's mixer (the counts are zeroed before each run);
+   slot-cache engine, then StableLM-3B on the bf16 and on the int8 dense
+   slot cache (``REPRO_KV_INT8=1``) with the same requests, OLMo 2 7B
+   dense and paged, Granite 3 8B,
+   StarCoder2 7B and Gemma 2 27B dense (head_dim 128); every request must
+   complete with finite logits, and every pass must go through each of the
+   path's kernels once per layer of the kernel's mixer (the counts are
+   zeroed before each run);
 5. engine parity on the card: full width, depth cut to 2 layers, float32
    (TF32 off), identical tokens for the paged and dense StableLM engines
    with kernels against plain versions, dense against paged, and the
@@ -48,11 +55,23 @@ on its own line:
    tenants x 2 dense replicas beside the ETL and trainer background
    tenants, interference and the gateway's backpressure on, with the
    controller and then without it (same seed); (b) cache-aware routing,
-   1 tenant x 2 paged replicas with the response cache; (c) run (a) twice
-   with the deterministic step-cost model, which must give identical
+   1 tenant x 2 paged replicas with the response cache; (c) (a)'s fleet
+   with 16 requests a tenant, run twice with the deterministic step-cost
+   model, which must give identical
    outputs, controller actions and gateway counters.  The controller must
    act in (a) and not without it, and flash and paged attention must
-   launch during the phase.
+   launch during the phase;
+7. the failure domains: (a) full-width StableLM-3B in bf16, 1 tenant x 4
+   paged replicas under the seeded chaos schedule with live migration, a
+   planned drain and the flight recorder (its Chrome trace written under
+   ``chiprun_out/``): every request completes, none is shed, the drain,
+   the crash and the gray replica are each evacuated by migration, at
+   least one lane moves warm and every shipped page verifies, no replica
+   holds a KV page at the end, and paged attention launches; (b) a migration's token
+   identity on the kernels: StableLM-3B full width x 2 layers in float32,
+   a few paged steps on one engine, its lanes shipped with their pages to
+   a second engine on the same weights and finished there, must give the
+   tokens of an uninterrupted run.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -64,11 +83,13 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -101,7 +122,7 @@ def device_info(torch) -> dict:
     info = {"nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0]}
-    log(f"[1/6] device: {info['kind']} x{info['count']}, torch "
+    log(f"[1/7] device: {info['kind']} x{info['count']}, torch "
         f"{info['torch']}, CUDA {info['cuda']}, python {info['python']}")
     log(smi)
     return info
@@ -158,7 +179,7 @@ def build_kernels() -> dict:
         mma = tensor_core_count(b.path)
         out[name] = {"so": b.path.name, "build_s": b.build_s,
                      "ptxas": ptxas, "tensor_core_sass": mma}
-        log(f"[2/6] built {name}: {b.path.name} in {b.build_s:.1f}s; "
+        log(f"[2/7] built {name}: {b.path.name} in {b.build_s:.1f}s; "
             f"tensor-core instructions in its SASS: HMMA {mma['HMMA']}, "
             f"HGMMA {mma['HGMMA']}")
         for ln in ptxas:
@@ -166,7 +187,7 @@ def build_kernels() -> dict:
         if name in TENSOR_CORE_KERNELS and not sum(mma.values()):
             raise AssertionError(f"{name}: no tensor-core instruction in "
                                  f"{b.path.name}")
-    log(f"[2/6] all kernels built in {time.perf_counter() - t0:.1f}s")
+    log(f"[2/7] all kernels built in {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -334,7 +355,9 @@ def check_kernels(torch) -> dict:
              ("gqa bf16 int8 pages (H=32, KV=8) lane-major", 32, 8, 128,
               torch.bfloat16, True, 2e-2, "lane", 64),
              ("stablelm bf16 lane-major, a 128-row chunk", 32, 32, 80,
-              torch.bfloat16, False, 2e-2, "lane", 128)]
+              torch.bfloat16, False, 2e-2, "lane", 128),
+             ("olmo2 bf16 (H=KV=32, hd=128) lane-major", 32, 32, 128,
+              torch.bfloat16, False, 2e-2, "lane", 64)]
     results = []
     for name, heads, kv, hd, dt, int8, tol, layout, chunk in cases:
         x = main_path_step(torch, heads=heads, kv=kv, hd=hd, layout=layout,
@@ -387,7 +410,7 @@ def check_kernels(torch) -> dict:
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "ops": ops}
         results.append(res)
-        log(f"[3/6] paged_attention_mixed {name}: B={q.shape[0]} "
+        log(f"[3/7] paged_attention_mixed {name}: B={q.shape[0]} "
             f"Q={q.shape[1]} "
             f"H={heads} KV={kv} hd={hd}: max_abs_err {err:.3g} (tol {tol})"
             f"{extra}; kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
@@ -455,6 +478,17 @@ def check_flash(torch) -> list:
          32, 8, 128, True, 256, 50.0, torch.bfloat16, 2e-2),
         ("hd=72 (padded to 80) S=T=1024 bf16", 1, 1024, 1024, 32, 32, 72,
          True, 0, None, torch.bfloat16, 2e-2),
+        # the head_dim-128 geometries that phase 4's serves launch
+        ("olmo2 H=KV=32 hd=128 bf16", 1, 1024, 1024, 32, 32, 128, True, 0,
+         None, torch.bfloat16, 2e-2),
+        ("starcoder2 H=36 KV=4 (group 9) hd=128 bf16", 1, 1024, 1024, 36, 4,
+         128, True, 0, None, torch.bfloat16, 2e-2),
+        ("gemma2 global H=32 KV=16 hd=128 softcap 50 bf16", 1, 1024, 1024,
+         32, 16, 128, True, 0, 50.0, torch.bfloat16, 2e-2),
+        ("gemma2 local H=32 KV=16 hd=128 window 4096 softcap 50 bf16", 1,
+         1024, 1024, 32, 16, 128, True, 4096, 50.0, torch.bfloat16, 2e-2),
+        ("granite H=32 KV=8 hd=128 bf16", 1, 1024, 1024, 32, 8, 128, True, 0,
+         None, torch.bfloat16, 2e-2),
     ]
     results = []
     for (name, b, s, t, h, kv, hd, causal, window, cap, dt,
@@ -493,7 +527,7 @@ def check_flash(torch) -> list:
                "ops": ops}
         results.append(res)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)"
-        log(f"[3/6] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
+        log(f"[3/7] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
             f"hd={hd}: max_abs_err {err:.3g} (tol {tol}); kernel {ms:.4f} "
             f"ms (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa {lib}, "
             f"bound "
@@ -584,7 +618,7 @@ def check_wkv(torch) -> list:
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops}
         results.append(res)
-        log(f"[3/6] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
+        log(f"[3/7] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
             f"{s_err:.3g} (rtol = atol = 1e-4); kernel {ms:.4f} ms (eager "
             f"{eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
@@ -731,7 +765,7 @@ def check_scan(torch) -> list:
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops, "sfu_exp_ms": exp_ms}
         results.append(res)
-        log(f"[3/6] selective_scan {name}: B={b} S={s} D={d} N={n}: "
+        log(f"[3/7] selective_scan {name}: B={b} S={s} D={d} N={n}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
             f"{h_err:.3g} (rtol = atol = 1e-4){extra}; kernel {ms:.4f} ms "
             f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
@@ -761,6 +795,23 @@ SERVE_RUNS = (
     ("jamba_v0_1_52b dense bf16", "jamba_v0_1_52b", "dense",
      ("selective_scan", "flash_attention"),
      dict(requests=8, max_new=32, repeats=2)),
+    # the int8 dense slot cache beside its bf16 twin (the same requests,
+    # prompts and max_new, run back to back), then the GQA configs at
+    # head_dim 128
+    ("stablelm_3b dense bf16, int8's twin", "stablelm_3b", "dense",
+     ("flash_attention",), dict(requests=4, max_new=16)),
+    ("stablelm_3b dense int8", "stablelm_3b", "dense", ("flash_attention",),
+     dict(requests=4, max_new=16, env={"REPRO_KV_INT8": "1"})),
+    ("olmo2_7b dense bf16", "olmo2_7b", "dense", ("flash_attention",),
+     dict(requests=4, max_new=16)),
+    ("olmo2_7b paged bf16", "olmo2_7b", "paged", ("paged_attention_mixed",),
+     dict(requests=4, max_new=16)),
+    ("granite_3_8b dense bf16", "granite_3_8b", "dense",
+     ("flash_attention",), dict(requests=4, max_new=16)),
+    ("starcoder2_7b dense bf16", "starcoder2_7b", "dense",
+     ("flash_attention",), dict(requests=4, max_new=16)),
+    ("gemma2_27b dense bf16", "gemma2_27b", "dense", ("flash_attention",),
+     dict(requests=4, max_new=16)),
 )
 # per kernel: the mixer whose layers launch it, and the passes that do
 # (flash runs in prefill only; the others in every forward pass)
@@ -776,6 +827,8 @@ def serve_full_width(torch) -> dict:
 
     runs = {}
     for tag, arch, backend, knames, kw in SERVE_RUNS:
+        kw = dict(kw)
+        env = kw.pop("env", {})
         cfg = get_config(arch)
         if "repeats" in kw:
             cfg = with_repeats(cfg, kw["repeats"])
@@ -784,10 +837,11 @@ def serve_full_width(torch) -> dict:
         torch.cuda.empty_cache()
         zero_counts()
         t0 = time.perf_counter()
-        run = serve(arch=arch, backend=backend, reduce=False, qps=20.0,
-                    prompt_len=64, prompt_len_max=1024, slots=8,
-                    seq_cap=2048, seed=0, device="cuda",
-                    with_controller=False, **kw)
+        with mock.patch.dict(os.environ, env):
+            run = serve(arch=arch, backend=backend, reduce=False, qps=20.0,
+                        prompt_len=64, prompt_len_max=1024, slots=8,
+                        seq_cap=2048, seed=0, device="cuda",
+                        with_controller=False, **kw)
         wall = time.perf_counter() - t0
         counts = read_counts()
         out = dict(run["T1"], peak_mem_bytes=run["device"]["peak_mem_bytes"])
@@ -800,12 +854,13 @@ def serve_full_width(torch) -> dict:
                              mixers.count(mixer), passes_key.split("_")[0])
         out.update(kernels=list(knames), launches=dict(
             (k, c[0]) for k, c in checks.items()), counts=counts,
-            wall_s=wall)
+            wall_s=wall, env=env)
         runs[tag] = out
         launched = ", ".join(
             f"{k} launches {n} ({p} {kind} passes x {lay} {KERNEL_PATH[k][0]}"
             f" layers)" for k, (n, p, lay, kind) in checks.items())
-        log(f"[4/6] serve {tag} full width ({out['layers']} layers): "
+        log(f"[4/7] serve {tag} full width ({out['layers']} layers"
+            f"{', ' + str(env) if env else ''}): "
             f"completed {out['completed']}/{out['offered']}, {out['steps']} "
             f"steps, TTFT p50 {out['ttft_p50_ms']:.2f} ms p99 "
             f"{out['ttft_p99_ms']:.2f} ms, ITL p50 {out['itl_p50_ms']:.2f} "
@@ -890,7 +945,7 @@ def engine_parity(torch) -> dict:
                 and not any(runs[(be, "ref")][2][k] for be in
                             ("paged", "dense") for k in runs[(be, "ref")][2]))
     for name, same in checks.items():
-        log(f"[5/6] engine parity, stablelm_3b full width x 2 layers, "
+        log(f"[5/7] engine parity, stablelm_3b full width x 2 layers, "
             f"float32 ({tf32}): {name}, {n_tok} tokens over "
             f"{len(PARITY_TRACE)} requests ({kinds.count('mixed')} mixed "
             f"steps of {len(kinds)} paged), identical={same}")
@@ -904,7 +959,7 @@ def engine_parity(torch) -> dict:
     same = rk[0] == rr[0]
     launched = (launched and rk[2]["rwkv6_scan"] > 0
                 and rr[2]["rwkv6_scan"] == 0)
-    log(f"[5/6] engine parity, rwkv6_1_6b full width x 2 layers, float32 "
+    log(f"[5/7] engine parity, rwkv6_1_6b full width x 2 layers, float32 "
         f"({tf32}): dense kernel vs plain, "
         f"{sum(len(o) for o in rr[0])} tokens over {len(PARITY_TRACE)} "
         f"requests, {rk[2]['rwkv6_scan']} scan launches, identical={same}")
@@ -924,7 +979,7 @@ def engine_parity(torch) -> dict:
     launched = (launched and jk[2]["selective_scan"] > 0
                 and jk[2]["flash_attention"] > 0
                 and not any(jr[2].values()))
-    log(f"[5/6] engine parity, jamba_v0_1_52b full width, period cut to "
+    log(f"[5/7] engine parity, jamba_v0_1_52b full width, period cut to "
         f"(mamba+moe, attn+dense), float32 ({tf32}): dense kernel vs "
         f"plain, {sum(len(o) for o in jr[0])} tokens over "
         f"{len(PARITY_TRACE)} requests, {jk[2]['selective_scan']} scan and "
@@ -950,6 +1005,9 @@ HARNESS = dict(arch="stablelm_3b", reduce=False, prompt_len=256,
                seed=0, device="cuda", verbose=False)
 EXPERIMENT = dict(num_tenants=2, replicas=2, interfere=True, listen=True,
                   requests=40, qps=10.0)
+# (c) takes (a)'s fleet with fewer requests: under the cost model its
+# steps barely batch, so each request costs it many steps
+DET_EXPERIMENT = dict(EXPERIMENT, requests=16)
 ROUTING = dict(num_tenants=1, replicas=2, backend="paged", route="cache",
                response_cache=True, requests=24, qps=10.0)
 _FLEET = ("routing", "directory", "response_cache", "admission", "actions",
@@ -971,14 +1029,14 @@ def harness_run(torch, smi: str, tag: str, weights, **kw) -> dict:
     names = [k for k in out if k not in _FLEET]
     for name in names:
         o = out[name]
-        log(f"[6/6] ({smi}) {tag} {name}: completed {o['completed']} / "
+        log(f"[6/7] ({smi}) {tag} {name}: completed {o['completed']} / "
             f"offered {o['offered']} / shed {o['shed']} / rejected "
             f"{o['rejected']} {o['reject_reasons']} / expired "
             f"{o['expired']}, TTFT p50 {o['ttft_p50_ms']:.2f} ms p99 "
             f"{o['ttft_p99_ms']:.2f} ms, ITL p99 {o['itl_p99_ms']:.2f} ms, "
             f"{o['steps']} steps, measured compute {o['compute_s']:.3f} s, "
             f"logits_finite={o['logits_finite']}")
-    log(f"[6/6] ({smi}) {tag} fleet: actions {out.get('actions')}, "
+    log(f"[6/7] ({smi}) {tag} fleet: actions {out.get('actions')}, "
         f"arbiter_max_units {out.get('arbiter_max_units')}, routing "
         f"{out['routing']}, directory {out.get('directory')}, response "
         f"cache {out.get('response_cache')}, virtual "
@@ -1024,7 +1082,7 @@ def harness(torch, smi: str) -> dict:
                                          weights, **ROUTING),
     }
     det = [harness_run(torch, smi, f"(c) det_timing run {i}", weights,
-                       det_timing=True, **EXPERIMENT) for i in (1, 2)]
+                       det_timing=True, **DET_EXPERIMENT) for i in (1, 2)]
     runs["(c) det_timing"] = det[0]
     cache.clear()
     on, off = runs["(a) controller on"], runs["(a) controller off"]
@@ -1052,15 +1110,175 @@ def harness(torch, smi: str) -> dict:
         "cache-routed requests": runs["(b) paged routing"]["routing"]["T1"][
             "routed_cache"] > 0,
     }
-    log(f"[6/6] ({smi}) det_timing runs identical: {identical}; flash "
+    log(f"[6/7] ({smi}) det_timing runs identical: {identical}; flash "
         f"launches over the dense runs {flash}, paged launches {paged}")
     for name, ok in checks.items():
-        log(f"[6/6] check {name}: {ok}")
+        log(f"[6/7] check {name}: {ok}")
     runs["checks"] = checks
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"harness checks failed: {bad}")
     return runs
+
+
+# ------------------------------------------------------------------ phase 7
+# the failure domains at full width: one tenant on 4 paged replicas.  The
+# chaos schedule (seed 7) crashes r2 at 1.20 s, slows r0 4x from 1.25 s
+# and sticks a lane on r1 at 1.62 s; the drain takes r3 at 1.0 s.  So the
+# drain, the crash and the gray evacuation of r0 each leave a live peer
+# (with 3 replicas the drain and the crash leave r0 alone, and the gray
+# detector, which needs two live replicas, never fires)
+FAILURES = dict(arch="stablelm_3b", reduce=False, backend="paged",
+                num_tenants=1, replicas=4, requests=24, qps=10.0,
+                prompt_len=256, prompt_len_max=1024, max_new=16, slots=4,
+                seq_cap=2048, seed=0, chaos=True, migrate=True,
+                drains=[(1.0, "T1", 3)], with_controller=False,
+                device="cuda", verbose=False)
+
+
+def failure_domains(torch, smi: str) -> dict:
+    """(a) chaos, migration, a drain and the flight recorder on full-width
+    StableLM-3B; (b) a migrated lane's tokens on the kernels."""
+    from repro_torch.launch.serve import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace_path = ROOT / "chiprun_out" / "phase7_trace.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = serve(**FAILURES, trace_out=str(trace_path))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    t1, faults = out["T1"], out["faults"]
+    migs = out["migrations"]
+    trace = json.loads(trace_path.read_text())
+    log(f"[7/7] ({smi}) (a) failure domains, stablelm_3b full width bf16, "
+        f"1 tenant x 4 paged replicas: completed {t1['completed']} / "
+        f"offered {t1['offered']} / shed {t1['shed']}, redriven "
+        f"{t1['redriven']} {t1['redriven_ids']}, TTFT p50 "
+        f"{t1['ttft_p50_ms']:.2f} ms p99 {t1['ttft_p99_ms']:.2f} ms, ITL "
+        f"p99 {t1['itl_p99_ms']:.2f} ms, redriven TTFT "
+        f"{[round(x, 2) for x in t1['redriven_ttft_ms']]} ms, "
+        f"{t1['steps']} steps, KV pages held {t1['kv_pages_held']}, "
+        f"virtual {out['device']['virtual_s']:.3f} s, wall {wall:.1f} s, "
+        f"peak memory {out['device']['peak_mem_bytes'] / 2**30:.2f} GiB, "
+        f"launches {counts}")
+    log(f"[7/7] ({smi}) (a) faults {faults['log']}, watchdog_fired "
+        f"{faults['watchdog_fired']}, actuator {faults.get('actuator')}")
+    for m in migs:
+        log(f"[7/7] ({smi}) (a) migration t={m['t']:.3f} s {m['reason']} "
+            f"r{m['from']}->r{m['to']}: {m['warm']} warm / {m['cold']} "
+            f"cold, {m['pages']} pages ({m['attached_pages']} attached, "
+            f"{m['copied_pages']} copied), {m['bytes']} bytes, modelled "
+            f"transfer {m['transfer_s'] * 1e3:.3f} ms, verify failures "
+            f"{m['verify_failures']}")
+    log(f"[7/7] (a) Chrome trace: {len(trace['traceEvents'])} events in "
+        f"{trace_path.relative_to(ROOT)}")
+    reasons = {m["reason"] for m in migs}
+    checks = {
+        "every request completed": t1["completed"] == t1["offered"] == 24,
+        "nothing shed": t1["shed"] == 0,
+        "the drain evacuated its replica": "drain" in reasons,
+        "the crashed replica's lanes migrated": "crash" in reasons,
+        "the gray replica was evacuated": "gray" in reasons,
+        "a lane moved warm": sum(m["warm"] for m in migs) >= 1,
+        "every shipped page verified": all(m["verify_failures"] == 0
+                                           for m in migs),
+        "no KV page held at the end": not any(t1["kv_pages_held"]),
+        # serve() ran the recorder's segment lint before returning
+        "the trace finished every request": out["trace"]["T1"][
+            "completed"] == t1["offered"],
+        "paged attention launched": counts["paged_attention_mixed"] > 0,
+        "finite logits": t1["logits_finite"],
+    }
+    res = {"a": dict(t1, faults=faults, migrations=migs, launches=counts,
+                     wall_s=wall, virtual_s=out["device"]["virtual_s"],
+                     peak_mem_bytes=out["device"]["peak_mem_bytes"],
+                     trace_events=len(trace["traceEvents"]))}
+    res["a"].pop("outputs")
+    res["b"] = migration_parity(torch)
+    checks["migrated tokens identical"] = res["b"]["identical"]
+    checks["every digest verified"] = res["b"]["verified"]
+    for name, ok in checks.items():
+        log(f"[7/7] check {name}: {ok}")
+    res["checks"] = checks
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"failure-domain checks failed: {bad}")
+    return res
+
+
+def migration_parity(torch) -> dict:
+    """PARITY_TRACE on StableLM-3B full width x 2 layers, float32, the
+    kernel route: a few paged steps on engine A, every lane drained with
+    its pages and imported into engine B on the same weights, finished
+    there; the tokens must equal an uninterrupted run's."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.migrate import PageImporter
+    from repro_torch.serving.request import Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("stablelm_3b").replace(repeats=2, dtype="float32")
+    params = Model(cfg, seed=1, device="cuda").params
+    base, _, _ = serve_trace(torch, cfg, params, "paged", "auto")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n, _ in PARITY_TRACE]
+
+    def engine():
+        return ServingEngine(cfg, params=params, max_slots=4, seq_cap=512,
+                             page_size=16, chunk_tokens=64, backend="paged",
+                             device="cuda")
+
+    src, dst = engine(), engine()
+    reqs = [Request(req_id=i, tenant="T1", prompt_len=len(p),
+                    max_new_tokens=mn, arrival=0.0, prompt_tokens=p.copy())
+            for i, (p, (_, mn)) in enumerate(zip(prompts, PARITY_TRACE))]
+    for r in reqs:
+        if not src.submit(r):
+            raise AssertionError(f"request {r.req_id} refused")
+    zero_counts()
+    for i in range(9):
+        src.finalize_step(src.step(), float(i))
+    t0 = time.perf_counter()
+    mans = src.drain_requests(ship_state=True)
+    importer = PageImporter(dst.runtime)
+    warm = 0
+    for man in mans:
+        if importer.import_lane(man):
+            warm += 1
+        elif not dst.submit(man.req):
+            raise AssertionError(f"request {man.req.req_id} refused")
+    move_s = time.perf_counter() - t0
+    steps = 9
+    while dst.has_work():
+        dst.finalize_step(dst.step(), float(steps))
+        steps += 1
+        if steps > 500:
+            raise AssertionError("the destination did not drain")
+    counts = read_counts()
+    tokens = [r.output_tokens for r in reqs]
+    shipped = sum(len(m.pages) for m in mans)
+    nbytes = sum(m.total_bytes for m in mans)
+    identical = tokens == base
+    verified = importer.verify_failures == 0 and warm == sum(
+        m.warm for m in mans) and warm >= 1
+    del params
+    log(f"[7/7] (b) migration parity, stablelm_3b full width x 2 layers, "
+        f"float32: {warm} of {len(mans)} lanes warm after 9 steps, "
+        f"{shipped} pages ({nbytes} bytes) exported and imported in "
+        f"{move_s * 1e3:.1f} ms, paged launches {counts['paged_attention_mixed']}"
+        f", verify failures {importer.verify_failures}, "
+        f"{sum(len(t) for t in tokens)} tokens, identical={identical}")
+    if counts["paged_attention_mixed"] == 0:
+        raise AssertionError("the migrated run did not launch paged "
+                             "attention")
+    return {"identical": identical, "verified": verified, "warm": warm,
+            "lanes": len(mans), "pages": shipped, "bytes": nbytes,
+            "move_s": move_s}
 
 
 def main() -> int:
@@ -1082,6 +1300,7 @@ def main() -> int:
     report["serve"] = serve_full_width(torch)
     report["parity"] = engine_parity(torch)
     report["harness"] = harness(torch, report["device"]["nvidia_smi"])
+    report["failures"] = failure_domains(torch, report["device"]["nvidia_smi"])
     report["total_s"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -6,6 +6,8 @@ clock; the PyTorch twin of ``repro/launch/serve.py``.
         --qps 4 --device cuda [--full-width] [--tenants 2] [--replicas 2] \
         [--interfere] [--no-controller] [--admit 1] [--listen] \
         [--backend paged [--kv-dtype int8] [--spec-k 3] [--route load]] \
+        [--chaos [--chaos-seed S] [--no-recover]] [--migrate] \
+        [--drain-at T:TENANT:REPLICA] [--trace] [--trace-out PATH] \
         [--arch rwkv6_1_6b] [--arch jamba_v0_1_52b --repeats 2]
 
 One continuous-batching ``ServingEngine`` per tenant-replica, all sharing
@@ -36,19 +38,22 @@ many repeats of the config's layer period.  Each tenant's replicas share
 one set of weight tensors (the reference seeds them alike, so they serve
 the same weights).
 
-Chaos and fault injection, live migration, planned drains, gray-failure
-evacuation, the stuck-lane watchdog and the flight recorder are not
-ported yet: their flags are refused with an error naming ROADMAP A5.2.
+The failure domains are the reference's: ``--chaos`` arms a seeded
+fault schedule (replica crashes, actuator-call failures through the
+bounded-retry actuator, stuck decode lanes found by the watchdog, fabric
+degradation), with recovery by redrive unless ``--no-recover``;
+``--migrate`` ships a failing replica's KV pages to a live peer
+(``serving/migrate.py``, chain-hash verified), for crashes, planned drains
+(``--drain-at``) and gray failures (a replica whose step cost runs
+``gray_threshold`` x its peers' is evacuated and quarantined).
+``--trace`` arms the per-request flight recorder (``serving/trace.py``),
+and ``--trace-out`` writes its Chrome trace.
 """
 from __future__ import annotations
 
 import argparse
 
 _PAGE = 16           # KV page size, the reference's engine default
-# the reference harness's flags that this port does not carry yet: each is
-# refused with an error naming the ROADMAP item that will bring it
-_REFUSED_FLAGS = ("--chaos", "--chaos-seed", "--no-recover", "--migrate",
-                  "--drain-at", "--trace", "--trace-out")
 
 
 def with_repeats(cfg, repeats: int):
@@ -100,6 +105,12 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
           route_imbalance: int = 4, route_staleness: int = 256,
           response_cache: bool = True, listen: bool = False,
           door_queue: int = 64, door_deadline_ms: float = 1000.0,
+          trace: bool = False, trace_out: str = None,
+          chaos: bool = False, chaos_seed: int = None,
+          recover: bool = True, faults=None,
+          watchdog_timeout_s: float = 1.5,
+          migrate: bool = False, drains=None,
+          gray_threshold: float = 2.5, gray_cooldown_s: float = 2.0,
           det_timing: bool = False, exact_tokens: bool = False,
           unique_prompts: bool = False, seq_cap: int = 128,
           reduce: bool = True, repeats: int = None, params=None,
@@ -108,7 +119,9 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     (one dict per tenant name) and the fleet's keys (``routing``,
     ``gateway``, ``prometheus``, ``device``; ``directory`` and
     ``response_cache`` on the paged backend, ``admission`` with ``admit``,
-    ``actions`` and ``arbiter_max_units`` with the controller).
+    ``actions`` and ``arbiter_max_units`` with the controller, ``faults``
+    under chaos, ``migrations`` with ``migrate`` or ``drains``, ``trace``
+    with the flight recorder).
 
     Prompt lengths are ``prompt_len``, or drawn uniformly from
     ``[prompt_len, prompt_len_max]`` when that is given.  ``params`` are
@@ -122,6 +135,18 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     ``listen`` arms the gateway's backpressure: door queues of
     ``door_queue``, a ``door_deadline_ms`` dispatch deadline (EXPIRED, the
     503 path) and a Kingman-derived rate limiter (REJECTED, the 429 path).
+    ``trace`` (or ``trace_out``, a Chrome trace's path) arms the flight
+    recorder: per-request segments that tile arrival to verdict, and every
+    controller and actuator action on the shared virtual clock; tracing
+    never moves the clock.  ``chaos`` (or an explicit ``faults``
+    injector) arms the reference's seeded fault schedule; ``recover=False``
+    sheds a crashed replica's requests instead of redriving them, and
+    ``watchdog_timeout_s`` is the stuck-lane watchdog's.  ``migrate``
+    recovers by verified KV-page shipping (crashes, ``drains`` as
+    ``(time, tenant, replica)`` triples, and gray failures past
+    ``gray_threshold`` x the best live peer's step cost, quarantined for
+    ``gray_cooldown_s``).
+
     ``det_timing`` replaces each step's measured time with the
     reference's per-token cost model, so the whole run is reproducible;
     ``exact_tokens`` pins float32 weights and the plain attention path, so
@@ -135,6 +160,8 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
                                             AdmissionController,
                                             AdmissionVerdict, RateLimiter)
     from repro_torch.core.controller import Controller, ControllerConfig
+    from repro_torch.core.faults import (FaultInjector, RetryingActuator,
+                                         StuckLaneWatchdog)
     from repro_torch.core.ledger import DeviceLedger
     from repro_torch.core.policy import PolicyConfig
     from repro_torch.core.profiles import A100_MIG
@@ -170,6 +197,19 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     paged = backend == "paged"
     names = ["T1"] if num_tenants == 1 else [f"L{i}"
                                              for i in range(num_tenants)]
+    # ---- failure domains: deterministic fault schedule ---------------
+    injector = faults
+    if injector is None and chaos:
+        injector = FaultInjector.plan(
+            chaos_seed if chaos_seed is not None else seed + 7,
+            duration_s=max(1.0, requests / qps),
+            tenants=list(names), replicas=replicas,
+            # a crash needs a survivor to redrive onto
+            crashes=1 if replicas > 1 else 0,
+            actuator_failures=2, stuck_lanes=1, fabric_windows=1,
+            # gray failure only matters when migration can evacuate it;
+            # plain chaos keeps the reference's schedule bit for bit
+            slow_replicas=1 if (migrate and replicas > 1) else 0)
     # spec_k is passed unconditionally: requesting speculation on the
     # dense backend must hit the engine's ValueError, not silently no-op
     eng_kw = dict(max_slots=slots, seq_cap=seq_cap, page_size=_PAGE,
@@ -271,6 +311,16 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     actuator = ServingActuator(engines, fabric, topo, lambda: now[0],
                                ledger=ledger,
                                rng=np.random.default_rng(seed + 1))
+    # under chaos the controller actuates through the bounded-retry
+    # wrapper (``controller`` binds later; the lambda resolves at call time)
+    retrying = None
+    if injector is not None:
+        retrying = RetryingActuator(
+            actuator, lambda: now[0], faults=injector,
+            fsm_for=lambda t: (controller.fsm_for(t)
+                               if controller is not None else None))
+    watchdog = (StuckLaneWatchdog(timeout_s=watchdog_timeout_s)
+                if injector is not None else None)
     windows = {name: LatencyWindow() for name in names}
 
     # ---- request-plane front door -----------------------------------
@@ -291,7 +341,9 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
 
     controller = None
     if with_controller:
-        controller = Controller(topo, A100_MIG, actuator,
+        controller = Controller(topo, A100_MIG,
+                                retrying if retrying is not None
+                                else actuator,
                                 ControllerConfig(policy=PolicyConfig(
                                     tau_s=0.200, persistence=2,
                                     dwell_obs=20, cooldown_obs=10)))
@@ -299,11 +351,31 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
             **placements, "T2": [Slot(0, "h0:g1", 0)],
             "T3": [Slot(0, "h0:g0", 1)]})
 
+    recorder = None
+    if trace or trace_out:
+        from repro_torch.serving.trace import FlightRecorder
+        recorder = FlightRecorder()
+
+    def warm(name):
+        for eng in engines[name]:
+            warm_engine(eng, name, prompt_len)
+        # the recorder attaches only AFTER warming: the warm request stays
+        # out of the trace as it stays out of metrics and the caches
+        if recorder is not None:
+            for eng in engines[name]:
+                eng.tracer = recorder
+
     # warm-up (kernel build, allocator and library warm-up) stays out of
     # the virtual clock, the metrics, the response cache and the directory
     for name in names:
-        for eng in engines[name]:
-            warm_engine(eng, name, prompt_len)
+        warm(name)
+    if recorder is not None:
+        gateway.tracer = recorder
+        actuator.tracer = recorder
+        if retrying is not None:
+            retrying.tracer = recorder
+        if controller is not None:
+            controller.tracer = recorder
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -345,6 +417,12 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     preempts = {name: 0 for name in names}
     steps = {name: 0 for name in names}
     compute = {name: 0.0 for name in names}
+    # ---- lane-migration state ----------------------------------------
+    migrations = []                       # completed-migration summaries
+    redriven_ids = {name: set() for name in names}   # req_ids that moved
+    drain_events = deque(sorted(drains)) if drains else deque()
+    step_hist = {}       # (tenant, replica) -> deque of per-token cost
+    quarantine = {}      # (tenant, replica) -> readmit time (gray)
     # per-engine availability clock: engines run in parallel
     avail = {(name, j): 0.0 for name in names for j in range(replicas)}
     next_sample = 1.0
@@ -364,7 +442,7 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     admission_log = []
     if admit > 0:
         admission = AdmissionController(topo, registry, ledger,
-                                        AdmissionConfig())
+                                        AdmissionConfig(), tracer=recorder)
         span = requests / qps
         admit_events = deque(
             (span * 0.3 + j * max(1.0, 1.0 / qps),
@@ -380,10 +458,11 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
         actuator.engines[name] = engines[name]
         actuator.compute_scales.setdefault(name, 1.0)
         actuator.pauses.setdefault(name, 0.0)
-        warm_engine(engines[name][0], name, prompt_len)
+        warm(name)
         windows[name] = LatencyWindow()
         gateway.door_cfgs[name] = door_cfg_for(spec)
         preempts[name] = 0
+        redriven_ids[name] = set()
         steps[name] = 0
         compute[name] = 0.0
         avail[(name, 0)] = t
@@ -414,6 +493,268 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
                 admission_log.append((now[0], spec.name, "admit"))
                 on_admitted(spec, slots_, now[0])
 
+    # ---- failure-domain recovery handlers ----------------------------
+    def migrate_replica(name, j, reason):
+        """Evacuate replica ``j`` by KV-page shipping: drain its lanes
+        WITH state, price the transfer against the fabric, and import
+        each page chain into the least-loaded live peer.  Verified
+        lanes are adopted warm (handoff span covers the transfer, TTFT
+        stamp conserved); cold / checksum-rejected lanes take the
+        recompute redrive — never a wrong token.  Returns
+        ``(dst, transfer_s)`` or None when there is no live peer or the
+        (possibly fault-injected) actuator call did not land."""
+        live = [k for k in gateway.live_replicas(name) if k != j]
+        if not live:
+            return None
+        dst = min(live, key=lambda k: (len(engines[name][k].queue)
+                                       + len(engines[name][k].active()), k))
+        n_before = len(actuator.migrations)
+        act = retrying if retrying is not None else actuator
+        act.migrate(name, j, dst)
+        if len(actuator.migrations) == n_before:
+            return None            # injected failure ate the call
+        rec = actuator.migrations.pop()
+        # the transfer may overlap the source's step in flight, but a
+        # lane resumes no earlier than that step's end: its tokens are
+        # already stamped there, and a lane resumed before it would emit
+        # a token before its own last one
+        arrive = max(now[0] + rec["transfer_s"], avail.get((name, j), 0.0))
+        moved = rec["warm"] + rec["cold"]
+        gateway.adopt_warm(name, rec["warm"], now[0], arrive,
+                           from_engine=j, to_engine=dst)
+        gateway.redrive(name, rec["cold"], now[0], from_engine=j)
+        redriven_ids[name].update(r.req_id for r in moved)
+        if watchdog is not None:
+            for r in moved:
+                watchdog.forget((name, j, r.req_id))
+        # the destination stalls for the transfer: migration is fabric
+        # traffic like any tenant flow, and it pays in virtual time too
+        avail[(name, dst)] = max(avail.get((name, dst), 0.0), arrive)
+        migrations.append({
+            "t": now[0], "tenant": name, "from": j, "to": dst,
+            "reason": reason, "warm": len(rec["warm"]),
+            "cold": len(rec["cold"]), "pages": rec["pages"],
+            "bytes": rec["bytes"], "transfer_s": rec["transfer_s"],
+            "attached_pages": rec["attached_pages"],
+            "copied_pages": rec["copied_pages"],
+            "verify_failures": rec["verify_failures"]})
+        if verbose:
+            print(f"  t={now[0]:6.1f}s MIGRATE {name}/r{j}->r{dst} "
+                  f"({reason}): {len(rec['warm'])} warm "
+                  f"({rec['attached_pages']} attached / "
+                  f"{rec['copied_pages']} shipped pages, "
+                  f"{rec['bytes'] / 1e6:.2f} MB in "
+                  f"{rec['transfer_s'] * 1e3:.1f} ms), "
+                  f"{len(rec['cold'])} recompute")
+        return dst, rec["transfer_s"]
+
+    def run_drains():
+        """Planned scale-down: evacuate the replica's lanes (page
+        shipping under ``migrate``, recompute redrive otherwise — never
+        shed), then release its slots for good."""
+        while drain_events and drain_events[0][0] <= now[0]:
+            _, name, j = drain_events.popleft()
+            if name not in engines or j >= len(engines[name]):
+                continue
+            if j not in gateway.live_replicas(name):
+                continue
+            if len(gateway.live_replicas(name)) <= 1:
+                continue             # never drain the last live replica
+            gateway.mark_dead(name, j)
+            routers[name].mark_dead(j)
+            directory.retract_replica(name, j)
+            if recorder is not None:
+                recorder.on_fault(now[0], "planned_drain", tenant=name,
+                                  replica=j)
+            res = migrate_replica(name, j, "drain") if migrate else None
+            if res is None:
+                drained = engines[name][j].drain_requests()
+                redriven_ids[name].update(r.req_id for r in drained)
+                if watchdog is not None:
+                    for r in drained:
+                        watchdog.forget((name, j, r.req_id))
+                n = gateway.redrive(name, drained, now[0], from_engine=j)
+                if verbose:
+                    print(f"  t={now[0]:6.1f}s DRAIN {name}/r{j}: "
+                          f"redrove {n} request(s) cold")
+            ledger.release(name, replica=j)
+            avail[(name, j)] = now[0]
+
+    def run_gray_detector():
+        """Tail-based gray-failure detection: a replica whose recent
+        per-token step cost is ``gray_threshold`` x its best live
+        peer's gets evacuated (warm, under ``migrate``) and quarantined
+        before the per-lane watchdog would fire."""
+        for name in list(names):
+            live = [k for k in gateway.live_replicas(name)
+                    if (name, k) not in quarantine]
+            if len(live) < 2:
+                continue
+            means = {}
+            for k in live:
+                h = step_hist.get((name, k))
+                if h is not None and len(h) >= 4:
+                    means[k] = sum(h) / len(h)
+            if len(means) < 2:
+                continue
+            best = min(means.values())
+            if best <= 0:
+                continue
+            for k, m in sorted(means.items()):
+                if m > gray_threshold * best:
+                    evacuate_gray(name, k)
+                    break            # one evacuation per tenant per tick
+
+    def evacuate_gray(name, j):
+        gateway.mark_dead(name, j)       # quarantine: reversible mask
+        directory.retract_replica(name, j)
+        if recorder is not None:
+            recorder.on_fault(now[0], "gray_evacuate", tenant=name,
+                              replica=j)
+        res = migrate_replica(name, j, "gray")
+        if res is None:
+            drained = engines[name][j].drain_requests()
+            redriven_ids[name].update(r.req_id for r in drained)
+            if watchdog is not None:
+                for r in drained:
+                    watchdog.forget((name, j, r.req_id))
+            gateway.redrive(name, drained, now[0], from_engine=j)
+        quarantine[(name, j)] = now[0] + gray_cooldown_s
+        step_hist.pop((name, j), None)
+        if injector is not None:
+            injector.log.append((now[0], "gray_evacuate", f"{name}/{j}"))
+        if verbose:
+            print(f"  t={now[0]:6.1f}s GRAY {name}/r{j}: evacuated, "
+                  f"quarantined until t={quarantine[(name, j)]:.1f}s")
+
+    def run_quarantine():
+        for (name, j), until in list(quarantine.items()):
+            if now[0] >= until:
+                del quarantine[(name, j)]
+                gateway.mark_live(name, j)
+                avail[(name, j)] = max(avail[(name, j)], now[0])
+                if verbose:
+                    print(f"  t={now[0]:6.1f}s GRAY {name}/r{j}: "
+                          f"readmitted")
+
+    def crash_replica(name, j):
+        """Replica death: mask it everywhere a request could still reach
+        it, release every resource it held, then redrive (or, recovery
+        off, shed) its in-flight requests.  Order matters: masking first
+        so nothing routes to the corpse, drain releases the pages, the
+        verdict/redrive decision comes last."""
+        if name not in engines or j >= len(engines[name]):
+            return
+        live = gateway.live_replicas(name)
+        if j not in live:
+            if (name, j) in quarantine:
+                # the quarantined gray replica died for real: make its
+                # mask permanent instead of readmitting a corpse
+                del quarantine[(name, j)]
+                routers[name].mark_dead(j)
+                ledger.release(name, replica=j)
+                injector.log.append(
+                    (now[0], "crash_in_quarantine", f"{name}/{j}"))
+            return                       # already dead
+        if len(live) <= 1:
+            # never kill the last live replica: redriven work (and all
+            # future arrivals) would have nowhere to land — log the
+            # skip so replay identity still covers it
+            injector.log.append(
+                (now[0], "crash_skipped_last_replica", f"{name}/{j}"))
+            return
+        eng = engines[name][j]
+        gateway.mark_dead(name, j)
+        routers[name].mark_dead(j)
+        directory.retract_replica(name, j)
+        if recover and migrate:
+            # warm standby adoption: the corpse's pages survive in the
+            # shared host pool, so ship them instead of recomputing
+            res = migrate_replica(name, j, "crash")
+            if res is not None:
+                ledger.release(name, replica=j)
+                avail[(name, j)] = now[0]
+                return
+        drained = eng.drain_requests()
+        ledger.release(name, replica=j)
+        if watchdog is not None:
+            for r in drained:
+                watchdog.forget((name, j, r.req_id))
+        if recover:
+            n = gateway.redrive(name, drained, now[0], from_engine=j)
+            redriven_ids[name].update(r.req_id for r in drained)
+            verb = "redrove"
+        else:
+            n = gateway.abandon(name, drained, now[0])
+            verb = "shed"
+        avail[(name, j)] = now[0]        # dead engines never step again
+        if verbose:
+            print(f"  t={now[0]:6.1f}s CRASH {name}/r{j}: {verb} {n} "
+                  f"in-flight request(s) "
+                  f"({len(live) - 1} live replica(s) remain)")
+
+    def stick_lane(name, j):
+        """Hang one active decode lane (lowest req_id, deterministic) on
+        the target replica; the watchdog detects the stalled progress
+        and requeues it through the refcount-safe preemption path."""
+        if name not in engines or j >= len(engines[name]):
+            return
+        if j not in gateway.live_replicas(name):
+            return
+        eng = engines[name][j]
+        if eng.runtime is None:
+            return
+        sched = eng.runtime.sched
+        lanes = [s.req.req_id for s in sched.active
+                 if s.req.req_id not in sched.stuck]
+        if not lanes:
+            injector.log.append(
+                (now[0], "stuck_skipped_no_lane", f"{name}/{j}"))
+            return
+        sched.mark_stuck(min(lanes))
+
+    def apply_faults():
+        for f in injector.due(now[0]):
+            if recorder is not None:
+                recorder.on_fault(now[0], f.kind, tenant=f.tenant,
+                                  replica=f.replica, method=f.method)
+            if f.kind == "replica_crash":
+                crash_replica(f.tenant, f.replica)
+            elif f.kind == "lane_stuck":
+                stick_lane(f.tenant, f.replica)
+            # actuator_fail / fabric_degrade armed inside the injector
+
+    def run_watchdog():
+        # feed every live lane's token progress, drop lanes that left
+        # the active set (completed / preempted / drained), then requeue
+        # whatever made no progress for the whole timeout
+        live_keys = set()
+        for name in names:
+            for j in gateway.live_replicas(name):
+                eng = engines[name][j]
+                if eng.runtime is None:
+                    continue
+                for s in eng.runtime.sched.active:
+                    key = (name, j, s.req.req_id)
+                    live_keys.add(key)
+                    watchdog.observe(key, s.req.generated, now[0])
+        watchdog.prune(live_keys)
+        for name, j, rid in watchdog.stale(now[0]):
+            sched = engines[name][j].runtime.sched
+            seq = sched.find(rid)
+            if seq is None or seq in sched.waiting:
+                continue
+            if recorder is not None:
+                recorder.on_preempt(seq.req, now[0],
+                                    engine=f"{name}/r{j}")
+            sched.preempt(seq)
+            preempts[name] += 1
+            injector.log.append(
+                (now[0], "watchdog_requeue", f"{name}/{j}/{rid}"))
+            if verbose:
+                print(f"  t={now[0]:6.1f}s WATCHDOG {name}/r{j}: "
+                      f"requeued stuck lane req {rid}")
+
     def submit_due():
         # front door first (SHED/REJECT/ACCEPT verdicts), then drain the
         # door queues into engines via the cache-aware router
@@ -431,6 +772,14 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
     while has_pending():
         if admission is not None:
             run_admissions()
+        if injector is not None:
+            apply_faults()
+        if drain_events:
+            run_drains()
+        if quarantine:
+            run_quarantine()
+        if injector is not None and migrate and recover:
+            run_gray_detector()
         submit_due()
         if controller and now[0] >= next_sample:
             tenants = {}
@@ -471,6 +820,16 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
                         + 3e-4 * rep.decode_tokens) if det_timing \
                     else rep.compute_s
                 dur = comp * actuator.compute_scale_of(name) + transfer
+                if injector is not None:
+                    base = dur
+                    # transient fabric degradation inflates the step, and
+                    # a gray replica quietly runs slow
+                    dur *= injector.fabric_factor(now[0])
+                    dur *= injector.replica_factor(name, j, now[0])
+                    # the gray detector's signal: the step's time over the
+                    # model's own prediction, per replica
+                    h = step_hist.setdefault((name, j), deque(maxlen=8))
+                    h.append(dur / max(base, 1e-12))
                 end = now[0] + dur
                 avail[(name, j)] = end
                 # engine timestamps + token-stream mirroring + terminal
@@ -479,6 +838,8 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
                 for pr in rep.prefilled:
                     windows[name].observe(end, pr.ttft, slo=0.2)
                 stepped = True
+        if watchdog is not None:
+            run_watchdog()
         if stepped:
             continue
         # nothing runnable now: hop to the next event
@@ -491,6 +852,8 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
                 horizon.append(actuator.paused_until(name))
         horizon.extend(t for t in avail.values() if t > now[0])
         horizon.extend(t for t, _ in admit_events)
+        horizon.extend(t for t, _, _ in drain_events)
+        horizon.extend(t for t in quarantine.values() if t > now[0])
         # door-queued requests: retry a beat later, and never sleep past
         # a dispatch deadline (expiry is an event too)
         for door in gateway.doors.values():
@@ -537,6 +900,14 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
             "forward_passes": sum(e.forward_passes for e in engs),
             "prefill_passes": sum(e.prefill_passes for e in engs),
             "logits_finite": all(e.logits_finite for e in engs),
+            # KV pages still held by sequences, per replica (0 after a
+            # clean run, dead and drained replicas included)
+            "kv_pages_held": [e.kv.reserved_pages for e in engs],
+            # TTFTs of requests that survived an evacuation (warm or cold)
+            "redriven_ids": sorted(int(i) for i in redriven_ids[name]),
+            "redriven_ttft_ms": sorted(
+                float(r.ttft * 1e3) for r in done
+                if r.req_id in redriven_ids[name]),
             "outputs": {int(r.req_id): [int(t) for t in r.output_tokens]
                         for r in done},
             "ttft_by_id": {int(r.req_id): float(r.ttft * 1e3)
@@ -577,6 +948,32 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
         out["arbiter_max_units"] = controller.arbiter.max_used()
         if verbose:
             print("controller actions:", out["actions"])
+    if injector is not None:
+        out["faults"] = {
+            "log": list(injector.log),
+            "pending": injector.pending(),
+            "recover": recover,
+            "redriven": {name: gateway.door(name).redriven
+                         for name in names},
+            "watchdog_fired": watchdog.fired,
+        }
+        if retrying is not None:
+            out["faults"]["actuator"] = dict(retrying.stats)
+            out["faults"]["actuator_time_lost_s"] = retrying.time_lost_s
+        if verbose and injector.log:
+            print(f"faults: {len(injector.log)} event(s), "
+                  f"redriven={out['faults']['redriven']}, "
+                  f"watchdog_fired={watchdog.fired}, "
+                  f"actuator={out['faults'].get('actuator')}")
+    if migrations or migrate or drains:
+        out["migrations"] = migrations
+        if verbose and migrations:
+            warm_n = sum(m["warm"] for m in migrations)
+            cold_n = sum(m["cold"] for m in migrations)
+            print(f"migrations: {len(migrations)} "
+                  f"({warm_n} warm lane(s), {cold_n} recompute, "
+                  f"{sum(m['bytes'] for m in migrations) / 1e6:.2f} MB "
+                  f"shipped)")
     out["gateway"] = gateway.counters()
     out["prometheus"] = gateway.prometheus(now[0])
     out["device"] = {
@@ -585,6 +982,15 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
                            if dev.type == "cuda" else None)}
     gateway.check()     # offered == completed+rejected+shed+expired+in_flight
     ledger.check()
+    if recorder is not None:
+        recorder.check()    # per-request: segments sum to measured E2E
+        out["trace"] = recorder.breakdown(now[0])
+        if trace_out:
+            recorder.dump(trace_out)
+        if verbose:
+            print(recorder.table())
+            if trace_out:
+                print(f"trace written to {trace_out}")
     return out
 
 
@@ -639,6 +1045,31 @@ def main(argv=None):
     ap.add_argument("--door-deadline-ms", type=float, default=1000.0,
                     help="--listen: queued requests not dispatched within "
                          "this deadline are EXPIRED")
+    ap.add_argument("--trace", action="store_true",
+                    help="arm the per-request flight recorder (span "
+                         "timelines whose segments sum to the measured E2E, "
+                         "plus controller actions on a shared timeline)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace_event JSON here "
+                         "(implies --trace)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="arm deterministic fault injection: a seeded "
+                         "schedule of replica crashes, actuator failures, "
+                         "stuck lanes and fabric degradation")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="fault-schedule seed (default: --seed + 7)")
+    ap.add_argument("--no-recover", action="store_true",
+                    help="keep the fault schedule but shed a crashed "
+                         "replica's in-flight requests instead of "
+                         "redriving them")
+    ap.add_argument("--migrate", action="store_true",
+                    help="recover by verified KV-page shipping instead of "
+                         "recompute (crashes, drains, gray failures)")
+    ap.add_argument("--drain-at", action="append", default=[],
+                    metavar="T:TENANT:REPLICA",
+                    help="planned scale-down: at virtual time T evacuate "
+                         "TENANT's replica REPLICA (repeatable; lanes are "
+                         "migrated or redriven, never shed)")
     ap.add_argument("--det-timing", action="store_true",
                     help="deterministic per-token step-cost model instead "
                          "of the measured step time")
@@ -652,15 +1083,15 @@ def main(argv=None):
                          "config's layer period")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    args, unknown = ap.parse_known_args(argv)
-    refused = sorted({u.split("=")[0] for u in unknown
-                      if u.split("=")[0] in _REFUSED_FLAGS})
-    if refused:
-        raise SystemExit(f"error: {', '.join(refused)}: chaos and fault "
-                         f"injection, migration, drains and tracing are not "
-                         f"ported yet (ROADMAP A5.2)")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = ap.parse_args(argv)
+    drains = []
+    for spec in args.drain_at:
+        try:
+            t, tenant, rep = spec.split(":")
+            drains.append((float(t), tenant, int(rep)))
+        except ValueError:
+            raise SystemExit(f"--drain-at wants T:TENANT:REPLICA, "
+                             f"got {spec!r}")
     serve(arch=args.arch, requests=args.requests, qps=args.qps,
           prompt_len=args.prompt_len, prompt_len_max=args.prompt_len_max,
           max_new=args.max_new, slots=args.slots, seq_cap=args.seq_cap,
@@ -674,6 +1105,10 @@ def main(argv=None):
           response_cache=not args.no_response_cache, listen=args.listen,
           door_queue=args.door_queue,
           door_deadline_ms=args.door_deadline_ms,
+          trace=args.trace, trace_out=args.trace_out,
+          chaos=args.chaos, chaos_seed=args.chaos_seed,
+          recover=not args.no_recover,
+          migrate=args.migrate, drains=drains or None,
           det_timing=args.det_timing,
           unique_prompts=args.unique_prompts, reduce=not args.full_width,
           repeats=args.repeats, device=args.device)

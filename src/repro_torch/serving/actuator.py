@@ -15,9 +15,9 @@ demand) lives in a shared DeviceLedger — the same bookkeeping the cluster
 simulator reads — so ``free_slots``/``headroom_units`` report real fabric
 state instead of constants, and moves/reconfigures are budget-checked.
 Used by repro_torch.launch.serve.  ``FabricState`` is the reference's,
-unedited; ``ServingActuator`` drives the port's ``ServingEngine``.  Live
-lane migration (``migrate``) needs ``serving/migrate.py``, which is not
-ported yet (ROADMAP A5.2), and raises.
+unedited; ``ServingActuator`` drives the port's ``ServingEngine``, and its
+live lane migration (``migrate``) ships KV pages through the port's
+``serving/migrate.py``.
 
 Single-tenant call sites keep working: passing one engine wraps it as
 tenant "T1" over a paper-default ledger (T1 on h0:g0:s0 against the
@@ -141,6 +141,11 @@ class ServingActuator:
             t: 1.0 for t in self.engines}     # MIG-profile compute multiplier
         self.pauses: Dict[str, float] = {t: 0.0 for t in self.engines}
         self.reconfigs: List[float] = []
+        # completed migrate() results (dicts), appended per call for the
+        # serving loop to pop: the actuator re-homes lanes engine-side
+        # but holds no gateway reference, so the caller finishes the
+        # request-plane half (warm adoption / cold redrive)
+        self.migrations: List[Dict] = []
         # the hot fabric path is the root hosting the heaviest bandwidth
         # (ETL-class) background stream, whatever it is named
         bw = [e for e in self.ledger.entries()
@@ -258,13 +263,58 @@ class ServingActuator:
         self._trace("query_headroom_units", "", device=device)
         return self.ledger.headroom_units(device)
 
+    def _replica_device(self, tenant: str, replica: int) -> Optional[str]:
+        for e in self.ledger.entries():
+            if e.tenant == tenant and e.replica == replica:
+                return e.slot.device
+        return None
+
     def migrate(self, tenant: str, replica_from: int,
                 replica_to: int) -> float:
-        """Live lane migration (KV-page shipping between replicas) needs
-        ``serving/migrate.py``, which the port does not carry yet."""
-        raise NotImplementedError(
-            "live lane migration (serving/migrate.py) is not ported yet "
-            "(ROADMAP A5.2)")
+        """Live lane migration: ship ``replica_from``'s resident lanes
+        (KV pages + cursors, chain-hashed) to ``replica_to`` and resume
+        them there.  The transfer is priced against the ledger's
+        per-root fabric demand — migration is PS traffic like any tenant
+        flow — and returned as the pause the victim's lanes observe.
+        Lanes that fail the importer's verify-then-commit handshake (or
+        never held pages) land in the result's ``cold`` list: the caller
+        must finish those through ``Gateway.redrive`` — the recompute
+        path — so a corrupted transfer degrades to latency,
+        never a wrong token.  The engine-side re-homing happens here;
+        the request-plane half (warm adoption / cold redrive) is the
+        caller's, via the appended ``self.migrations`` record."""
+        from repro_torch.serving.migrate import MigrationPlanner, PageImporter
+        key = self._key(tenant)
+        engs = self.engines[key]
+        src, dst = engs[replica_from], engs[replica_to]
+        manifests = src.drain_requests(ship_state=True)
+        planner = MigrationPlanner(self.fabric, self.topo, self.ledger)
+        plan = planner.price(manifests,
+                             src_device=self._replica_device(key,
+                                                             replica_from),
+                             dst_device=self._replica_device(key,
+                                                             replica_to))
+        warm: List = []
+        cold: List = []
+        importer = PageImporter(dst.runtime) if dst.runtime is not None \
+            else None
+        for man in manifests:
+            if importer is not None and importer.import_lane(man):
+                warm.append(man.req)
+            else:
+                cold.append(man.req)
+        self.migrations.append({
+            "tenant": key, "from": replica_from, "to": replica_to,
+            "warm": warm, "cold": cold, "transfer_s": plan.transfer_s,
+            "pages": plan.pages, "bytes": plan.bytes,
+            "attached_pages": importer.attached_pages if importer else 0,
+            "copied_pages": importer.copied_pages if importer else 0,
+            "verify_failures": importer.verify_failures if importer else 0})
+        self._trace("migrate", key, dur=plan.transfer_s,
+                    replica_from=replica_from, replica_to=replica_to,
+                    lanes=plan.lanes, warm=len(warm), cold=len(cold),
+                    pages=plan.pages, bytes=plan.bytes)
+        return plan.transfer_s
 
     # ------------------------------------------------------- KV observability
     def kv_pressure(self, tenant: str) -> Dict[str, float]:

@@ -235,15 +235,26 @@ class ServingEngine:
             return self.runtime.has_work()
         return bool(self.queue) or any(s is not None for s in self.slots)
 
-    def drain_requests(self) -> List[Request]:
+    def drain_requests(self, ship_state: bool = False):
         """Replica death / planned drain: release every KV page and return
         the resident requests (queued, prefilling and decoding alike)
         rolled to a restartable state (outputs cleared, the original
-        ``prefill_done`` stamp kept so TTFT is not double-counted)."""
+        ``prefill_done`` stamp kept so TTFT is not double-counted).
+
+        ``ship_state=True`` returns ``serving/migrate.LaneManifest``
+        objects instead: the paged backend serializes each resident lane's
+        KV pages (with chain hashes) BEFORE the drain resets its cursors,
+        so a ``PageImporter`` on another replica can resume the lane warm;
+        the dense backend holds no shippable page chains, so its manifests
+        are cold (recompute is the only path)."""
         if self.runtime is not None:
+            manifests = None
+            if ship_state:
+                from repro_torch.serving.migrate import PageExporter
+                manifests = PageExporter(self.runtime).export_all()
             drained = self.runtime.drain_for_redrive()
             self.kv.release_all()        # safety net: no page outlives death
-            return drained
+            return manifests if manifests is not None else drained
         drained = list(self.queue)
         self.queue.clear()
         for i, req in enumerate(self.slots):
@@ -257,6 +268,13 @@ class ServingEngine:
             req.output_tokens.clear()
             req.decode_times.clear()
         self.kv.release_all()
+        if ship_state:
+            from repro_torch.serving.migrate import LaneManifest
+            return [LaneManifest(
+                req=r,
+                prompt_tokens=np.asarray(r.prompt_tokens, np.int64)
+                if r.prompt_tokens is not None else np.zeros(0, np.int64))
+                for r in drained]
         return drained
 
     # ----------------------------------------------------------------- step

@@ -330,8 +330,14 @@ def test_controller_drives_both_actuators_alike(backend):
 
 
 def test_single_engine_wraps_as_t1_and_migration_is_refused():
+    """(The name predates the port of ``migrate``, which no longer
+    raises.)  A bare engine wraps as tenant T1; migrating off a dense replica
+    ships no page (the dense slot cache holds no page chains), so every
+    resident request comes back cold for the caller to redrive, priced at
+    the planner's setup time."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
     eng = ServingEngine(reduced(get_config("stablelm_3b")), max_slots=4,
                         seq_cap=64, device="cpu")
     act = ServingActuator(eng, FabricState(), make_p4d_cluster(2),
@@ -342,5 +348,12 @@ def test_single_engine_wraps_as_t1_and_migration_is_refused():
     assert eng.quota == 0.5 and eng.active_slot_budget == 2
     eng.set_quota(0.01)
     assert eng.quota == 0.1 and eng.active_slot_budget == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.2"):
-        act.migrate("T1", 0, 0)
+    req = Request(req_id=0, tenant="T1", prompt_len=9, max_new_tokens=4,
+                  arrival=0.0)
+    assert eng.submit(req)
+    eng.finalize_step(eng.step(), 0.01)
+    assert act.migrate("T1", 0, 0) == pytest.approx(0.005)
+    (rec,) = act.migrations
+    assert rec["warm"] == [] and rec["cold"] == [req]
+    assert rec["pages"] == rec["bytes"] == 0
+    assert not eng.has_work() and req.generated == 0

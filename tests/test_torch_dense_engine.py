@@ -344,7 +344,18 @@ def test_dense_refusals(stablelm, kw, exc, match):
 
 
 def test_int8_dense_cache_is_refused_by_name(stablelm, monkeypatch):
-    _, tcfg, _, tparams = stablelm
+    """(The name predates the int8 slot cache's port; the test keeps it.)
+    ``REPRO_KV_INT8=1`` gives the dense engine the reference's int8 slot
+    cache (the paged-only ``kv_dtype`` stays refused above), and with
+    prompts the engines draw themselves it serves the JAX dense int8
+    engine's tokens."""
     monkeypatch.setenv("REPRO_KV_INT8", "1")
-    with pytest.raises(NotImplementedError, match="A4"):
-        ServingEngine(tcfg, params=tparams, backend="dense", device="cpu")
+    specs = [(i, None, n, mn) for i, (n, mn) in enumerate(TRACE)]
+    jeng, teng = engines(stablelm)
+    leaves = teng.cache["period"]["sub0"]["self"]
+    assert sorted(leaves) == ["k", "k_scale", "pos", "v", "v_scale"]
+    assert leaves["k"].dtype == torch.int8
+    assert leaves["v_scale"].dtype == torch.bfloat16
+    jreqs, treqs, _, _ = run_both(jeng, teng, specs)
+    assert_same_tokens(jreqs, treqs)
+    assert_no_leaks(teng)

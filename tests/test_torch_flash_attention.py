@@ -147,11 +147,72 @@ def test_gqa_prefill_cache_and_decode_match_jax(kv, window, cap):
 
 
 def test_int8_dense_cache_is_refused_by_name(monkeypatch):
-    tcfg = t_reduced(t_get_config("stablelm_3b"))
+    """(The name predates the int8 slot cache's port; the test keeps it.)
+    ``REPRO_KV_INT8=1`` plans the reference's int8 slot cache (int8 K/V,
+    bf16 scales per token and kv head, positions) for full and window
+    layers, and a window-16 ring cache built from prefill and written by
+    12 decode steps (it wraps) matches the JAX package's: the same
+    positions, int8 codes at most one step apart, scales to 1e-2, and the
+    attention outputs to 1e-2 of their largest value."""
+    b, s, seq_cap, steps, window = 2, 40, 56, 12, 16
+    jcfg = reduced(get_config("stablelm_3b")).replace(dtype="float32")
+    tcfg = t_reduced(t_get_config("stablelm_3b")).replace(dtype="float32")
     monkeypatch.setenv("REPRO_KV_INT8", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        t_attn.attn_cache_plan(tcfg, LayerSpec(), 2, 64)
-    monkeypatch.setenv("REPRO_KV_INT8", "0")
-    plan = t_attn.attn_cache_plan(tcfg, LayerSpec(window=16), 2, 64)
-    assert plan["k"].shape == (2, 16, tcfg.attn.num_kv_heads,
-                               tcfg.attn.head_dim)
+    for w in (0, window):
+        plan = t_attn.attn_cache_plan(tcfg, LayerSpec(window=w), 2, 64)
+        jplan = jax_attn.attn_cache_plan(jcfg, JaxLayerSpec(window=w), 2, 64,
+                                         NO_POLICY)
+        assert {k: (p.shape, p.dtype) for k, p in plan.items()} == \
+            {k: (p.shape, p.dtype) for k, p in jplan.items()}
+        assert plan["k"].dtype == "int8" and plan["k_scale"].dtype == \
+            "bfloat16"
+    jlayer, tlayer = JaxLayerSpec(window=window), LayerSpec(window=window)
+    a, d = tcfg.attn, tcfg.d_model
+    rng = np.random.default_rng(8)
+    shapes = {"wq": (d, a.num_heads, a.head_dim),
+              "wk": (d, a.num_kv_heads, a.head_dim),
+              "wv": (d, a.num_kv_heads, a.head_dim),
+              "wo": (a.num_heads, a.head_dim, d)}
+    params = {n: (rng.standard_normal(sh) / np.sqrt(sh[0])).astype(
+        np.float32) for n, sh in shapes.items()}
+    jp = {n: jnp.asarray(p) for n, p in params.items()}
+    tp = {n: torch.from_numpy(p) for n, p in params.items()}
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    _, (jk, jv) = jax_attn.gqa_prefill(jp, jnp.asarray(x), jnp.asarray(pos),
+                                       jlayer, jcfg, NO_POLICY)
+    _, (tk, tv) = t_attn.gqa_prefill(tp, torch.from_numpy(x),
+                                     torch.from_numpy(pos), tlayer, tcfg)
+    jcache = jax_attn.build_gqa_cache(jk, jv, jnp.asarray(pos), jlayer,
+                                      seq_cap, NO_POLICY)
+    tcache = t_attn.build_gqa_cache(tk, tv, torch.from_numpy(pos), tlayer,
+                                    seq_cap)
+
+    def same_cache():
+        assert sorted(tcache) == sorted(jcache)
+        np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                      np.asarray(jcache["pos"]))
+        for name in ("k", "v"):
+            assert tcache[name].dtype == torch.int8
+            assert np.abs(tcache[name].numpy().astype(np.int32)
+                          - np.asarray(jcache[name]).astype(np.int32)
+                          ).max() <= 1
+            np.testing.assert_allclose(
+                tcache[name + "_scale"].float().numpy(),
+                np.asarray(jcache[name + "_scale"].astype(jnp.float32)),
+                rtol=1e-2)
+
+    same_cache()
+    ptr = tcache["k_scale"].data_ptr()
+    for i in range(steps):               # the ring wraps for window 16
+        x1 = rng.standard_normal((b, 1, d)).astype(np.float32)
+        p1 = np.full((b,), s + i, np.int32)
+        jout, jcache = jax_attn.gqa_decode(jp, jnp.asarray(x1), jcache,
+                                           jnp.asarray(p1), jlayer, jcfg,
+                                           NO_POLICY)
+        tout = t_attn.gqa_decode(tp, torch.from_numpy(x1), tcache,
+                                 torch.from_numpy(p1), tlayer, tcfg)
+        jo = np.asarray(jout)
+        assert np.abs(tout.numpy() - jo).max() <= 1e-2 * np.abs(jo).max()
+    assert tcache["k_scale"].data_ptr() == ptr    # written in place
+    same_cache()

@@ -30,7 +30,8 @@ def test_every_module_imports_with_jax_absent():
     mods = _modules()
     for m in ("core.controller", "core.admission", "core.topology",
               "core.ledger", "core.faults", "sim.cluster", "sim.params",
-              "serving.gateway", "serving.actuator", "serving.directory"):
+              "serving.gateway", "serving.actuator", "serving.directory",
+              "serving.trace", "serving.migrate"):
         assert f"repro_torch.{m}" in mods
     assert "repro_torch.serving.paged_runtime" in mods
     assert "repro_torch.models.rwkv" in mods
