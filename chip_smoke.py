@@ -22,7 +22,11 @@ on its own line:
    windowed/softcapped GQA and head_dim-72 cases, then the head_dim-128
    geometries of phase 4's serves: OLMo 2's MHA, StarCoder2's group of
    9, Gemma 2's global and windowed layers with softcap 50 and Granite's
-   group of 4; paged attention at OLMo 2's H = KV = 32 too; the WKV scan: RWKV-6
+   group of 4, then Phi-3-vision's prefill (576 patches + 1024 tokens, hd
+   96), SeamlessM4T's non-causal encoder (S = T = 1024 and 777) and its
+   prefill cross-attention (one BOS row over 1024 frames), and MLA's
+   prefill (128 heads of 128 + 64, V zero-padded; and the reduced 32 + 16
+   in f32); paged attention at OLMo 2's H = KV = 32 too; the WKV scan: RWKV-6
    prefill and decode, a ragged S, bf16 inputs and the other head widths
    at ragged B, H and S; the selective scan: Jamba's Mamba prefill with
    bf16 and f32 x, a ragged S, decode, two chained halves, D off the
@@ -40,15 +44,22 @@ on its own line:
    slot-cache engine, then StableLM-3B on the bf16 and on the int8 dense
    slot cache (``REPRO_KV_INT8=1``) with the same requests, OLMo 2 7B
    dense and paged, Granite 3 8B,
-   StarCoder2 7B and Gemma 2 27B dense (head_dim 128); every request must
-   complete with finite logits, and every pass must go through each of the
-   path's kernels once per layer of the kernel's mixer (the counts are
-   zeroed before each run);
-5. engine parity on the card: full width, depth cut to 2 layers, float32
-   (TF32 off), identical tokens for the paged and dense StableLM engines
+   StarCoder2 7B and Gemma 2 27B dense (head_dim 128), then DeepSeek-V2
+   (MLA, its dense first layer and 6 repeats of its MoE layer, 7 layers),
+   Phi-3-vision (576 zero patch embeds before each prompt), SeamlessM4T
+   (24 encoder and 24 cross-attending decoder layers, zero frames) and
+   Mixtral 8x7B (20 of its 32 layers) dense; every request must complete
+   with finite logits, and every pass must go through each of the path's
+   kernels once per layer that launches it (flash: each attention layer,
+   each cross-attention block and each encoder layer of a prefill; the
+   counts are zeroed before each run);
+5. engine parity on the card, float32 (TF32 off): full width, depth cut
+   to 2 layers, identical tokens for the paged and dense StableLM engines
    with kernels against plain versions, dense against paged, and the
    RWKV-6 and Jamba (one Mamba + MoE layer and the attention layer) dense
-   engines with the kernels against the plain versions;
+   engines with the kernels against the plain versions; then reduced
+   DeepSeek-V2, Phi-3-vision and SeamlessM4T on the dense engine, kernels
+   against plain versions;
 6. the multi-tenant harness (gateway, actuator, controller, admission)
    serving full-width StableLM-3B in bf16 through
    ``repro_torch.launch.serve``: (a) the paper's experiment, 2 latency
@@ -489,11 +500,29 @@ def check_flash(torch) -> list:
          1024, 1024, 32, 16, 128, True, 4096, 50.0, torch.bfloat16, 2e-2),
         ("granite H=32 KV=8 hd=128 bf16", 1, 1024, 1024, 32, 8, 128, True, 0,
          None, torch.bfloat16, 2e-2),
+        # the geometries of phase 4's Phi-3-vision, SeamlessM4T and
+        # DeepSeek-V2 serves
+        ("phi3v prefill H=KV=32 hd=96 S=T=1600 bf16", 1, 1600, 1600, 32, 32,
+         96, True, 0, None, torch.bfloat16, 2e-2),
+        ("seamless encoder non-causal H=KV=16 hd=64 S=T=1024 bf16", 1, 1024,
+         1024, 16, 16, 64, False, 0, None, torch.bfloat16, 2e-2),
+        ("seamless encoder non-causal S=T=777 bf16", 1, 777, 777, 16, 16, 64,
+         False, 0, None, torch.bfloat16, 2e-2),
+        ("seamless cross-attention non-causal S=1 T=1024 bf16", 1, 1, 1024,
+         16, 16, 64, False, 0, None, torch.bfloat16, 2e-2),
+        ("mla prefill H=KV=128 hd=128+64 (V padded) S=T=1024 bf16", 1, 1024,
+         1024, 128, 128, 192, True, 0, None, torch.bfloat16, 2e-2),
+        ("mla reduced hd=32+16 (V padded) S=T=250 f32", 1, 250, 250, 4, 4, 48,
+         True, 0, None, torch.float32, 2e-3),
     ]
+    # MLA's V is its 128 (reduced: 32) columns, zero-padded to the Q/K width
+    v_width = {192: 128, 48: 32}
     results = []
     for (name, b, s, t, h, kv, hd, causal, window, cap, dt,
          tol) in cases:
         q, k, v = flash_inputs(torch, b, s, t, h, kv, hd, dt, seed=s + t)
+        if name.startswith("mla"):
+            v[..., v_width[hd]:] = 0
         kw = dict(causal=causal, window=window, softcap=cap)
         out = fa_kernel.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -812,6 +841,16 @@ SERVE_RUNS = (
      ("flash_attention",), dict(requests=4, max_new=16)),
     ("gemma2_27b dense bf16", "gemma2_27b", "dense", ("flash_attention",),
      dict(requests=4, max_new=16)),
+    # MLA, the VLM frontend and the encoder-decoder; Mixtral cut to 20 of
+    # its 32 layers (54.55 GiB of bf16 weights)
+    ("deepseek_v2_236b dense bf16", "deepseek_v2_236b", "dense",
+     ("flash_attention",), dict(requests=4, max_new=16, repeats=6)),
+    ("phi_3_vision_4_2b dense bf16", "phi_3_vision_4_2b", "dense",
+     ("flash_attention",), dict(requests=4, max_new=16)),
+    ("seamless_m4t_large_v2 dense bf16", "seamless_m4t_large_v2", "dense",
+     ("flash_attention",), dict(requests=4, max_new=16)),
+    ("mixtral_8x7b dense bf16", "mixtral_8x7b", "dense",
+     ("flash_attention",), dict(requests=4, max_new=16, repeats=20)),
 )
 # per kernel: the mixer whose layers launch it, and the passes that do
 # (flash runs in prefill only; the others in every forward pass)
@@ -819,6 +858,27 @@ KERNEL_PATH = {"paged_attention_mixed": ("attn", "forward_passes"),
                "flash_attention": ("attn", "prefill_passes"),
                "rwkv6_scan": ("rwkv6", "forward_passes"),
                "selective_scan": ("mamba", "forward_passes")}
+
+
+def launching_layers(cfg, kname: str) -> int:
+    """Launches of ``kname`` per pass of its kind: one per layer of its
+    mixer; flash also once per cross-attention block and per encoder
+    layer of a prefill."""
+    layers = cfg.layer_specs()
+    n = sum(layer.mixer == KERNEL_PATH[kname][0] for layer in layers)
+    if kname == "flash_attention":
+        n += sum(layer.cross_attn for layer in layers)
+        n += cfg.encoder.num_layers if cfg.encoder is not None else 0
+    return n
+
+
+def weight_bytes(cfg) -> int:
+    """Bytes of the config's weights, by its plan."""
+    import numpy as np
+    from repro_torch.models.model import model_plan
+    from repro_torch.models.params import plan_leaves, torch_dtype
+    return sum(int(np.prod(p.shape)) * torch_dtype(p.dtype).itemsize
+               for p in plan_leaves(model_plan(cfg)))
 
 
 def serve_full_width(torch) -> dict:
@@ -832,7 +892,7 @@ def serve_full_width(torch) -> dict:
         cfg = get_config(arch)
         if "repeats" in kw:
             cfg = with_repeats(cfg, kw["repeats"])
-        mixers = [layer.mixer for layer in cfg.layer_specs()]
+        weights = weight_bytes(cfg)
         gc.collect()
         torch.cuda.empty_cache()
         zero_counts()
@@ -851,22 +911,25 @@ def serve_full_width(torch) -> dict:
         for kname in knames:
             mixer, passes_key = KERNEL_PATH[kname]
             checks[kname] = (counts[kname], out[passes_key],
-                             mixers.count(mixer), passes_key.split("_")[0])
+                             launching_layers(cfg, kname),
+                             passes_key.split("_")[0])
         out.update(kernels=list(knames), launches=dict(
             (k, c[0]) for k, c in checks.items()), counts=counts,
-            wall_s=wall, env=env)
+            wall_s=wall, env=env, weight_bytes=weights)
         runs[tag] = out
         launched = ", ".join(
-            f"{k} launches {n} ({p} {kind} passes x {lay} {KERNEL_PATH[k][0]}"
-            f" layers)" for k, (n, p, lay, kind) in checks.items())
-        log(f"[4/7] serve {tag} full width ({out['layers']} layers"
+            f"{k} launches {n} ({p} {kind} passes x {lay} launching layers)"
+            for k, (n, p, lay, kind) in checks.items())
+        log(f"[4/7] serve {tag} full width ({out['layers']} layers, "
+            f"weights {weights / 2**30:.2f} GiB"
             f"{', ' + str(env) if env else ''}): "
             f"completed {out['completed']}/{out['offered']}, {out['steps']} "
             f"steps, TTFT p50 {out['ttft_p50_ms']:.2f} ms p99 "
             f"{out['ttft_p99_ms']:.2f} ms, ITL p50 {out['itl_p50_ms']:.2f} "
             f"ms p99 {out['itl_p99_ms']:.2f} ms, {out['tokens_per_s']:.1f} "
             f"tokens/s, peak memory {out['peak_mem_bytes'] / 2**30:.2f} "
-            f"GiB, {launched}, wall {wall:.1f} s")
+            f"GiB, logits_finite={out['logits_finite']}, {launched}, wall "
+            f"{wall:.1f} s")
         if out["completed"] != out["offered"]:
             raise AssertionError(f"{tag}: not every request completed")
         if not out["logits_finite"]:
@@ -916,7 +979,7 @@ def serve_trace(torch, cfg, params, backend, impl) -> tuple:
 
 
 def engine_parity(torch) -> dict:
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import get_config, reduced
     from repro_torch.models.model import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -986,6 +1049,25 @@ def engine_parity(torch) -> dict:
         f"{jk[2]['flash_attention']} flash launches, identical={same}")
     checks["jamba dense kernel vs plain"] = same
     out["jamba_v0_1_52b"] = {"identical": same, "tokens": jr[0]}
+    # MLA, the VLM frontend and the encoder-decoder at their reduced
+    # widths (flash at hd 32 + 16 with V padded, hd 64 with the patch
+    # prefix, hd 64 non-causal in the encoder and over the frames)
+    for seed, arch in enumerate(("deepseek_v2_236b", "phi_3_vision_4_2b",
+                                 "seamless_m4t_large_v2"), start=4):
+        cfg = reduced(get_config(arch)).replace(dtype="float32")
+        params = Model(cfg, seed=seed, device="cuda").params
+        rk = serve_trace(torch, cfg, params, "dense", "auto")
+        rr = serve_trace(torch, cfg, params, "dense", "ref")
+        del params
+        same = rk[0] == rr[0]
+        launched = (launched and rk[2]["flash_attention"] > 0
+                    and not any(rr[2].values()))
+        log(f"[5/7] engine parity, {arch} reduced, float32 ({tf32}): dense "
+            f"kernel vs plain, {sum(len(o) for o in rr[0])} tokens over "
+            f"{len(PARITY_TRACE)} requests, {rk[2]['flash_attention']} "
+            f"flash launches, identical={same}")
+        checks[f"{arch} reduced dense kernel vs plain"] = same
+        out[f"{arch} reduced"] = {"identical": same, "tokens": rr[0]}
     if not launched:
         raise AssertionError("a parity run's kernel route did not launch "
                              "its kernel, or a plain run did")

@@ -25,8 +25,10 @@
 //     stages, so the next tile loads while this one computes.  S = QK^T,
 //     the mask, softcap's tanh and the online softmax stay in the f32
 //     accumulator fragments, and P is fed to PV from registers.  The
-//     head_dim is zero-padded in shared memory to a multiple of 16 (80 and
-//     128 need none; any hd <= 256).  A head_dim that is not a multiple of
+//     head_dim is zero-padded in shared memory to the next of the built
+//     widths 64, 80, 96, 128, 192 and 256 (the serving paths' 64, 80,
+//     Phi-3-vision's 96, 128 and MLA's 128 + 64 need none; any hd <= 256
+//     runs).  A head_dim that is not a multiple of
 //     8, or a misaligned tensor, is staged element by element instead.  A
 //     warp masks only the tiles that reach past its rows' causal limit,
 //     the window's edge or T.  The query tiles sit in the grid's slowest
@@ -473,7 +475,9 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
                       hd, scale, causal, window, softcap, stream)
   if (hd <= 64) FA_TC_LAUNCH(64);
   if (hd <= 80) FA_TC_LAUNCH(80);
+  if (hd <= 96) FA_TC_LAUNCH(96);
   if (hd <= 128) FA_TC_LAUNCH(128);
+  if (hd <= 192) FA_TC_LAUNCH(192);
   if (hd <= 256) FA_TC_LAUNCH(256);
 #undef FA_TC_LAUNCH
   return cudaErrorInvalidValue;

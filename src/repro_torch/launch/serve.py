@@ -8,7 +8,9 @@ clock; the PyTorch twin of ``repro/launch/serve.py``.
         [--backend paged [--kv-dtype int8] [--spec-k 3] [--route load]] \
         [--chaos [--chaos-seed S] [--no-recover]] [--migrate] \
         [--drain-at T:TENANT:REPLICA] [--trace] [--trace-out PATH] \
-        [--arch rwkv6_1_6b] [--arch jamba_v0_1_52b --repeats 2]
+        [--arch rwkv6_1_6b] [--arch jamba_v0_1_52b --repeats 2] \
+        [--arch deepseek_v2_236b --repeats 6] [--arch phi_3_vision_4_2b] \
+        [--arch seamless_m4t_large_v2] [--arch mixtral_8x7b --repeats 20]
 
 One continuous-batching ``ServingEngine`` per tenant-replica, all sharing
 a ``FabricState`` (the PS fabric model injects PCIe-class interference
@@ -34,7 +36,8 @@ tokens), or by the reference's per-token cost model with ``det_timing``.
 The backend is the dense slot cache unless ``--backend paged``.  It
 serves ``reduced(get_config(arch))`` unless ``reduce=False``
 (``--full-width``); ``repeats`` (``--repeats``) cuts the depth to that
-many repeats of the config's layer period.  Each tenant's replicas share
+many repeats of the config's layer period (a prefix, such as DeepSeek-V2's
+dense first layer, stays).  Each tenant's replicas share
 one set of weight tensors (the reference seeds them alike, so they serve
 the same weights).
 
@@ -996,7 +999,12 @@ def serve(arch: str = "stablelm_3b", requests: int = 32, qps: float = 4.0,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="stablelm_3b")
+    ap.add_argument("--arch", default="stablelm_3b",
+                    help="any config of configs/ (e.g. rwkv6_1_6b, "
+                         "jamba_v0_1_52b, deepseek_v2_236b, "
+                         "phi_3_vision_4_2b, seamless_m4t_large_v2, "
+                         "mixtral_8x7b); the paged backend takes the "
+                         "GQA stacks without windows only")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--qps", type=float, default=4.0)
     ap.add_argument("--prompt-len", type=int, default=48)

@@ -1,25 +1,37 @@
-"""GQA attention (with RoPE / sliding-window / logit softcap): the PyTorch
-twin of the GQA part of ``repro/models/attention.py``.
+"""Attention family: GQA (with RoPE / sliding-window / logit softcap), MLA
+(DeepSeek-V2 multi-head latent attention) and enc-dec cross-attention, the
+PyTorch twin of ``repro/models/attention.py``.
 
-Decode uses a fixed-capacity slot cache ``[batch, cap, KV, hd]``:
-  * full attention  — capacity = seq_cap, write slot = position
+Decode uses a fixed-capacity slot cache:
+  * full attention  — ``[batch, seq_cap, KV, hd]``, write slot = position
   * sliding window  — capacity = window, ring buffer, write slot = pos % W
-Every cache carries a per-slot ``pos`` array (int32, -1 = empty) used for
-masking, which keeps ring buffers and continuous batching exact.
+  * MLA             — compressed ``ckv [batch, seq_cap, kv_lora]`` and
+                      ``krope [batch, seq_cap, rope]``, absorbed decode
+  * cross-attention — the encoder memory's K/V ``[batch, enc_len, KV, hd]``,
+                      read-only in decode
+Every self-attention cache carries a per-slot ``pos`` array (int32, -1 =
+empty) used for masking, which keeps ring buffers and continuous batching
+exact.
 
 Differences from the JAX module, none of which changes a result:
 
 * prefill attention goes through ``kernels/flash_attention`` (the CUDA
   kernel on the card, its plain version on the CPU) instead of the jnp
   path, which computes the same function for prefill's ``arange``
-  positions;
-* ``gqa_decode`` writes K/V (with their int8 scales) and positions IN
-  PLACE into the cache it is given (``index_put_``), where the JAX code
-  returns a new cache.
+  positions: GQA layers (causal, or non-causal in the encoder), MLA
+  prefill (Q and K ``[nope | rope]``, V zero-padded to their width) and
+  the prefill's cross-attention (non-causal over the frames);
+* ``gqa_decode`` and ``mla_decode`` write this token's cache rows IN PLACE
+  into the cache they are given (``index_put_``), where the JAX code
+  returns a new cache;
+* decode cross-attention takes a per-row count of valid frames, so the
+  dense engine's slot cache can hold frames of several lengths (the JAX
+  code attends over every frame of its cache).
 
-``REPRO_KV_INT8=1`` selects the reference's int8 slot cache: int8 K/V with
-one bf16 scale per (token, kv head), quantized on write and dequantized to
-the model dtype on read.  MLA and cross-attention are later slices.
+``REPRO_KV_INT8=1`` selects the reference's int8 slot cache for GQA: int8
+K/V with one bf16 scale per (token, kv head), quantized on write and
+dequantized to the model dtype on read.  MLA and cross-attention caches
+keep the model dtype, as in the reference.
 """
 from __future__ import annotations
 
@@ -29,7 +41,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import apply_rope, einsum, softcap
+from repro_torch.models.common import apply_rope, einsum, rms_norm, softcap
 from repro_torch.models.params import P
 
 _NEG_INF = -2.0e38
@@ -37,9 +49,30 @@ _NEG_INF = -2.0e38
 
 def attention_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
     a = cfg.attn
-    if a.kind != "gqa":
-        raise NotImplementedError(
-            f"attention kind {a.kind!r} is not ported yet (only GQA)")
+    d = cfg.d_model
+    if a.kind == "mla":
+        return {
+            "wq_a": P((d, a.q_lora_rank)),
+            "q_norm": P((a.q_lora_rank,), dtype="float32", init="zeros"),
+            "wq_b": P((a.q_lora_rank, a.num_heads,
+                       a.nope_head_dim + a.rope_head_dim),
+                      fan_in=a.q_lora_rank),
+            "wkv_a": P((d, a.kv_lora_rank + a.rope_head_dim)),
+            "kv_norm": P((a.kv_lora_rank,), dtype="float32", init="zeros"),
+            "wk_b": P((a.kv_lora_rank, a.num_heads, a.nope_head_dim),
+                      fan_in=a.kv_lora_rank),
+            "wv_b": P((a.kv_lora_rank, a.num_heads, a.v_head_dim),
+                      fan_in=a.kv_lora_rank),
+            "wo": P((a.num_heads, a.v_head_dim, d),
+                    fan_in=a.num_heads * a.v_head_dim),
+        }
+    return cross_attention_plan(cfg)
+
+
+def cross_attention_plan(cfg: ModelConfig) -> dict:
+    """GQA projections (a self-attention layer's and a cross-attention
+    block's are laid out alike)."""
+    a = cfg.attn
     d = cfg.d_model
     return {
         "wq": P((d, a.num_heads, a.head_dim)),
@@ -56,14 +89,22 @@ def kv_quantized() -> bool:
 
 def attn_cache_plan(cfg: ModelConfig, layer: LayerSpec, batch: int,
                     seq_len: int) -> dict:
-    """Decode-cache plan for one GQA layer: int8 K/V with bf16 scales per
-    (token, kv head) under ``REPRO_KV_INT8=1``, else the model dtype (fp32
-    configs keep fp32 so cached K/V match prefill exactly)."""
+    """Decode-cache plan for one attention layer.  MLA: the compressed
+    ``ckv``/``krope`` rows, planned in bf16 whatever the model dtype and
+    never int8, as the reference plans them (so a float32 engine rounds
+    them to bf16 on their way into the slot cache, as the JAX engine
+    does).  GQA:
+    int8 K/V with bf16 scales per (token, kv head) under
+    ``REPRO_KV_INT8=1``, else the model dtype (fp32 configs keep fp32 so
+    cached K/V match prefill exactly)."""
     a = cfg.attn
-    if a.kind != "gqa":
-        raise NotImplementedError(
-            f"attention kind {a.kind!r} is not ported yet (only GQA)")
     cap = min(seq_len, layer.window) if layer.window else seq_len
+    if a.kind == "mla":
+        return {
+            "ckv": P((batch, cap, a.kv_lora_rank)),
+            "krope": P((batch, cap, a.rope_head_dim)),
+            "pos": P((batch, cap), dtype="int32"),
+        }
     if kv_quantized():
         return {
             "k": P((batch, cap, a.num_kv_heads, a.head_dim), dtype="int8"),
@@ -94,6 +135,15 @@ def _quantize_kv(x):
 
 def _dequantize_kv(q, scale, dtype):
     return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def cross_cache_plan(cfg: ModelConfig, batch: int, enc_len: int) -> dict:
+    """The encoder memory's K/V for one cross-attention block."""
+    a = cfg.attn
+    return {
+        "ck": P((batch, enc_len, a.num_kv_heads, a.head_dim), dtype=cfg.dtype),
+        "cv": P((batch, enc_len, a.num_kv_heads, a.head_dim), dtype=cfg.dtype),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -211,4 +261,138 @@ def gqa_decode(params, x, cache, positions, layer: LayerSpec,
     p = _masked_softmax(scores, mask)
     ctx = einsum("bkgst,btkh->bskgh", p.to(x.dtype), v_read)
     ctx = ctx.reshape(b, 1, a.num_heads, a.head_dim)
+    return einsum("bshk,hkd->bsd", ctx, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_qkv_prefill(params, x, positions, cfg: ModelConfig):
+    """Low-rank Q (normed latent, then per head ``[nope | rope]``) and the
+    compressed KV row (normed ``ckv`` and the shared RoPE key).
+    x: [B,S,d]; positions: [B,S]."""
+    a = cfg.attn
+    q_lat = rms_norm(einsum("bsd,dr->bsr", x, params["wq_a"]),
+                     params["q_norm"], cfg.norm_eps)
+    q = einsum("bsr,rhk->bshk", q_lat, params["wq_b"])
+    q_nope, q_rope = q[..., : a.nope_head_dim], q[..., a.nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = einsum("bsd,dr->bsr", x, params["wkv_a"])
+    ckv = rms_norm(kv[..., : a.kv_lora_rank], params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, a.kv_lora_rank:], positions,
+                        cfg.rope_theta)[..., 0, :]        # [B,S,rope]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_prefill(params, x, positions, layer: LayerSpec, cfg: ModelConfig, *,
+                impl: str = "auto"):
+    """x: [B,S,d]; positions: [B,S], each row ``arange(S)``.  Decompresses
+    per-head K/V once and runs the flash kernel on ``[nope | rope]`` rows:
+    Q ``[q_nope | q_rope]``, K ``[k_nope | k_rope]`` (the RoPE key shared
+    by every head), V zero-padded to the same width, scale
+    1/sqrt(nope + rope) as in the reference; the output's first
+    ``v_head_dim`` columns are the context.  Returns (out [B,S,d],
+    (ckv, k_rope))."""
+    a = cfg.attn
+    b, s, _ = x.shape
+    h, qk = a.num_heads, a.nope_head_dim + a.rope_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_prefill(params, x, positions, cfg)
+    k_nope = einsum("btr,rhk->bthk", ckv, params["wk_b"])
+    v = einsum("btr,rhv->bthv", ckv, params["wv_b"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h,
+                                                      a.rope_head_dim)],
+                  dim=-1)
+    v = torch.nn.functional.pad(v, (0, qk - a.v_head_dim))
+    ctx = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=True, scale=1.0 / float(qk) ** 0.5,
+                          impl=impl)
+    out = einsum("bshv,hvd->bsd", ctx[..., : a.v_head_dim], params["wo"])
+    return out, (ckv, k_rope)
+
+
+def build_mla_cache(ckv, k_rope, positions, seq_cap: int):
+    """The compressed decode cache: the last ``min(S, seq_cap)`` rows, each
+    at slot ``pos``, in the dtype of ``ckv``."""
+    b, s = positions.shape
+    dev = ckv.device
+    out = {"ckv": torch.zeros((b, seq_cap) + ckv.shape[2:], dtype=ckv.dtype,
+                              device=dev),
+           "krope": torch.zeros((b, seq_cap) + k_rope.shape[2:],
+                                dtype=k_rope.dtype, device=dev),
+           "pos": torch.full((b, seq_cap), -1, dtype=torch.int32,
+                             device=dev)}
+    take = min(s, seq_cap)
+    bidx = torch.arange(b, device=dev)[:, None]
+    slots = positions[:, -take:].long()
+    out["ckv"][bidx, slots] = ckv[:, -take:]
+    out["krope"][bidx, slots] = k_rope[:, -take:]
+    out["pos"][bidx, slots] = positions[:, -take:].to(torch.int32)
+    return out
+
+
+def mla_decode(params, x, cache, positions, layer: LayerSpec,
+               cfg: ModelConfig):
+    """Absorbed-matmul MLA decode: ``wk_b`` folded into the query, f32
+    scores over the compressed ``ckv`` and ``krope`` rows, the compressed
+    context multiplied by ``wv_b``; never materialises per-head K/V.
+    x: [B,1,d]; positions: [B] int32.  Writes this token's rows and
+    position into ``cache`` in place and returns the output [B,1,d]."""
+    a = cfg.attn
+    b = x.shape[0]
+    scale = 1.0 / float(a.nope_head_dim + a.rope_head_dim) ** 0.5
+    q_nope, q_rope, ckv_new, kr_new = _mla_qkv_prefill(
+        params, x, positions[:, None], cfg)
+    idx = (torch.arange(b, device=x.device), positions.long())
+    cache["ckv"].index_put_(idx, ckv_new[:, 0].to(cache["ckv"].dtype))
+    cache["krope"].index_put_(idx, kr_new[:, 0].to(cache["krope"].dtype))
+    cache["pos"].index_put_(idx, positions.to(torch.int32))
+    ckv, krope = cache["ckv"], cache["krope"]
+    q_abs = einsum("bshk,rhk->bshr", q_nope, params["wk_b"])
+    # the JAX einsums accumulate in f32 (preferred_element_type)
+    scores = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             krope.float())) * scale      # [B,H,1,T]
+    pt = cache["pos"][:, None, None, :]
+    mask = (pt >= 0) & (pt <= positions[:, None, None, None])
+    p = _masked_softmax(scores, mask)
+    ctx_c = einsum("bhst,btr->bshr", p.to(x.dtype), ckv)  # compressed ctx
+    ctx = einsum("bshr,rhv->bshv", ctx_c, params["wv_b"])
+    return einsum("bshv,hvd->bsd", ctx, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec decoder layers)
+# ---------------------------------------------------------------------------
+
+def cross_attn_kv(params, memory):
+    """memory: [B,F,d] encoder output -> (ck, cv) [B,F,KV,hd]."""
+    return (einsum("bfd,dhk->bfhk", memory, params["wk"]),
+            einsum("bfd,dhk->bfhk", memory, params["wv"]))
+
+
+def cross_attn(params, x, ck, cv, cfg: ModelConfig, *, kv_len=None,
+               impl: str = "auto"):
+    """x: [B,S,d]; attends (non-causal, no RoPE) over the encoder memory's
+    K/V [B,F,KV,hd].  Without ``kv_len`` every frame counts and the call
+    goes through the flash kernel (prefill); with ``kv_len`` [B] (decode
+    over the slot cache) frames past each row's count are masked, in
+    plain PyTorch as ``gqa_decode`` attends."""
+    a = cfg.attn
+    b, s, _ = x.shape
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    if kv_len is None:
+        ctx = flash_attention(q.contiguous(), ck.contiguous(),
+                              cv.contiguous(), causal=False, impl=impl)
+    else:
+        g = a.num_heads // a.num_kv_heads
+        qg = q.reshape(b, s, a.num_kv_heads, g, a.head_dim)
+        scores = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                              ck.float()) / float(a.head_dim) ** 0.5
+        frames = torch.arange(ck.shape[1], device=x.device)
+        mask = (frames[None, :] < kv_len[:, None])[:, None, None, None, :]
+        p = _masked_softmax(scores, mask)
+        ctx = einsum("bkgst,btkh->bskgh", p.to(x.dtype), cv)
+    ctx = ctx.reshape(b, s, a.num_heads, a.head_dim)
     return einsum("bshk,hkd->bsd", ctx, params["wo"])

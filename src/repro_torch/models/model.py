@@ -1,18 +1,19 @@
-"""Model assembly for decoder stacks of GQA attention and Mamba mixers with
-dense or MoE FFNs, and of RWKV-6 layers: the PyTorch twin of the parts of
-``repro/models/model.py`` that serving runs (``prefill`` and
-``decode_step`` for the dense slot-cache backend; the paged runtime uses
-the layer pieces).
+"""Model assembly for every config of the repository: decoder stacks of
+GQA or MLA attention, Mamba and RWKV-6 mixers with dense or MoE FFNs, the
+VLM frontend's patch prefix and the enc-dec encoder with cross-attending
+decoder layers; the PyTorch twin of the parts of ``repro/models/model.py``
+that serving runs (``prefill`` and ``decode_step`` for the dense
+slot-cache backend; the paged runtime uses the layer pieces).
 
 Parameters keep the JAX plan's names and layouts (``wq [d,H,hd]``,
 ``w_in [d,2,ff]``, period leaves stacked ``[repeats, ...]``), so the weight
 bridge is a name-for-name copy and the einsums carry over one to one.  The
-period runs as a Python loop over per-repeat views of the stacked
-parameters and caches, where the JAX package runs ``lax.scan``;
-``decode_step`` writes each layer's cache IN PLACE through those views
-(the JAX code returns a new cache).  The MoE load-balance loss is computed
-and dropped, as serving drops it.  MLA, cross-attention, encoders and
-frontends are later slices (ROADMAP A6).
+period (and the encoder) runs as a Python loop over per-repeat views of the
+stacked parameters and caches, where the JAX package runs ``lax.scan``;
+``decode_step`` writes each layer's self-attention or state cache IN PLACE
+through those views (the JAX code returns a new cache) and leaves the
+cross-attention K/V untouched, as the reference does.  The MoE
+load-balance loss is computed and dropped, as serving drops it.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ def dense_ffn_plan(cfg: ModelConfig, spec) -> dict:
 
 
 def _ported(layer: LayerSpec) -> bool:
-    if layer.cross_attn:
+    if layer.cross_attn and layer.mixer != "attn":
         return False
     if layer.mixer == "rwkv6":
         return layer.ffn == "rwkv_cm"
@@ -55,8 +56,9 @@ def _ported(layer: LayerSpec) -> bool:
 def layer_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
     if not _ported(layer):
         raise NotImplementedError(
-            f"layer {layer} is not ported yet (attention or Mamba with a "
-            f"dense or MoE FFN, and RWKV-6; ROADMAP A6)")
+            f"layer {layer} is not one the port serves (attention or Mamba "
+            f"with a dense, MoE or no FFN, cross-attention after attention "
+            f"only; RWKV-6 with its channel-mix)")
     d = cfg.d_model
     plan: Dict[str, Any] = {"norm1": P((d,), dtype="float32", init="zeros")}
     if layer.mixer == "attn":
@@ -66,6 +68,9 @@ def layer_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
     else:
         # rwkv channel-mix params live inside the rwkv plan
         plan["rwkv"] = rwkv_mod.rwkv_plan(cfg)
+    if layer.cross_attn:
+        plan["norm_x"] = P((d,), dtype="float32", init="zeros")
+        plan["cross"] = attn_mod.cross_attention_plan(cfg)
     if layer.ffn in ("dense", "moe"):
         plan["norm2"] = P((d,), dtype="float32", init="zeros")
         fspec = cfg.ffn_spec_for(layer)
@@ -83,10 +88,11 @@ def stack_plan(plan, n: int):
                                 init=p.init, fan_in=p.fan_in), plan)
 
 
+# the encoder's layers: non-causal self-attention and a dense FFN
+ENCODER_LAYER = LayerSpec(mixer="attn", ffn="dense")
+
+
 def model_plan(cfg: ModelConfig) -> dict:
-    if cfg.encoder is not None or cfg.frontend.kind != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoders and frontends are not ported yet")
     d, v = cfg.d_model, cfg.vocab_size
     plan: Dict[str, Any] = {
         "embed": P((v, d), init="small"),
@@ -94,6 +100,8 @@ def model_plan(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         plan["lm_head"] = P((d, v))
+    if cfg.frontend.kind != "none":
+        plan["frontend_proj"] = P((cfg.frontend.embed_dim, d))
     if cfg.prefix:
         plan["prefix"] = {f"layer{i}": layer_plan(cfg, l)
                           for i, l in enumerate(cfg.prefix)}
@@ -101,31 +109,46 @@ def model_plan(cfg: ModelConfig) -> dict:
         period = {f"sub{i}": layer_plan(cfg, l)
                   for i, l in enumerate(cfg.period)}
         plan["period"] = stack_plan(period, cfg.repeats)
+    if cfg.encoder:
+        plan["encoder"] = {
+            "period": stack_plan({"sub0": layer_plan(cfg, ENCODER_LAYER)},
+                                 cfg.encoder.num_layers),
+            "final_norm": P((d,), dtype="float32", init="zeros"),
+        }
     return plan
 
 
 def layer_cache_plan(cfg: ModelConfig, layer: LayerSpec, batch: int,
-                     seq_cap: int) -> dict:
+                     seq_cap: int, enc_len: int = 0) -> dict:
+    """A layer's decode cache: ``self`` (attention K/V or the recurrent
+    state) and, for a cross-attending layer when ``enc_len`` > 0,
+    ``cross`` (the encoder memory's K/V)."""
     if layer.mixer == "attn":
-        return {"self": attn_mod.attn_cache_plan(cfg, layer, batch, seq_cap)}
-    if layer.mixer == "mamba":
-        return {"self": ssm_mod.mamba_state_plan(cfg, batch)}
-    if layer.mixer == "rwkv6":
-        return {"self": rwkv_mod.rwkv_state_plan(cfg, batch)}
-    raise NotImplementedError(
-        f"mixer {layer.mixer!r} is not ported yet (ROADMAP A6)")
+        plan = {"self": attn_mod.attn_cache_plan(cfg, layer, batch, seq_cap)}
+    elif layer.mixer == "mamba":
+        plan = {"self": ssm_mod.mamba_state_plan(cfg, batch)}
+    elif layer.mixer == "rwkv6":
+        plan = {"self": rwkv_mod.rwkv_state_plan(cfg, batch)}
+    else:
+        raise ValueError(layer.mixer)
+    if layer.cross_attn and enc_len:
+        plan["cross"] = attn_mod.cross_cache_plan(cfg, batch, enc_len)
+    return plan
 
 
-def cache_plan(cfg: ModelConfig, batch: int, seq_cap: int) -> dict:
+def cache_plan(cfg: ModelConfig, batch: int, seq_cap: int,
+               enc_len: int = 0) -> dict:
     """The dense decode cache: prefix leaves ``[batch, ...]``, period
-    leaves stacked ``[repeats, batch, ...]``."""
+    leaves stacked ``[repeats, batch, ...]``; cross-attention leaves hold
+    ``enc_len`` frames."""
     plan: Dict[str, Any] = {}
     if cfg.prefix:
         plan["prefix"] = {
-            f"layer{i}": layer_cache_plan(cfg, l, batch, seq_cap)
+            f"layer{i}": layer_cache_plan(cfg, l, batch, seq_cap, enc_len)
             for i, l in enumerate(cfg.prefix)}
     if cfg.period:
-        period = {f"sub{i}": layer_cache_plan(cfg, l, batch, seq_cap)
+        period = {f"sub{i}": layer_cache_plan(cfg, l, batch, seq_cap,
+                                              enc_len)
                   for i, l in enumerate(cfg.period)}
         plan["period"] = stack_plan(period, cfg.repeats)
     return plan
@@ -167,8 +190,7 @@ def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
     if layer.ffn == "none":
         return h
     if layer.ffn not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"ffn {layer.ffn!r} is not ported yet (ROADMAP A6)")
+        raise ValueError(layer.ffn)
     x = rms_norm(h, lp["norm2"], cfg.norm_eps)
     fspec = cfg.ffn_spec_for(layer)
     if layer.ffn == "moe":
@@ -182,24 +204,43 @@ def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
 # Layer application
 # ---------------------------------------------------------------------------
 
+def _cross(lp, h, cfg: ModelConfig, ck, cv, *, kv_len=None,
+           impl: str = "auto"):
+    """The residual cross-attention block of an enc-dec decoder layer."""
+    xq = rms_norm(h, lp["norm_x"], cfg.norm_eps)
+    return h + attn_mod.cross_attn(lp["cross"], xq, ck, cv, cfg,
+                                   kv_len=kv_len, impl=impl)
+
+
 def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
-                    seq_cap: int, impl: str = "auto"):
+                    seq_cap: int, memory=None, impl: str = "auto"):
     """Full-sequence (prefill) layer application from an empty state.
-    h: [B,S,d]; positions: [B,S], each row ``arange(S)``.  Returns
+    h: [B,S,d]; positions: [B,S], each row ``arange(S)``; ``memory``
+    [B,F,d], the encoder output a cross-attending layer reads.  Returns
     (h, cache) with ``cache`` as ``layer_cache_plan`` lays it out."""
     xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
     if layer.mixer == "attn":
-        out, (k, v) = attn_mod.gqa_prefill(lp["attn"], xin, positions,
-                                           layer, cfg, impl=impl)
-        cache = {"self": attn_mod.build_gqa_cache(k, v, positions, layer,
-                                                  seq_cap)}
-        return _apply_ffn(lp, h + out, layer, cfg), cache
+        if cfg.attn.kind == "mla":
+            out, (ckv, krope) = attn_mod.mla_prefill(
+                lp["attn"], xin, positions, layer, cfg, impl=impl)
+            cache = {"self": attn_mod.build_mla_cache(ckv, krope, positions,
+                                                      seq_cap)}
+        else:
+            out, (k, v) = attn_mod.gqa_prefill(lp["attn"], xin, positions,
+                                               layer, cfg, impl=impl)
+            cache = {"self": attn_mod.build_gqa_cache(k, v, positions, layer,
+                                                      seq_cap)}
+        h = h + out
+        if layer.cross_attn and memory is not None:
+            ck, cv = attn_mod.cross_attn_kv(lp["cross"], memory)
+            h = _cross(lp, h, cfg, ck, cv, impl=impl)
+            cache["cross"] = {"ck": ck, "cv": cv}
+        return _apply_ffn(lp, h, layer, cfg), cache
     if layer.mixer == "mamba":
         out, state = ssm_mod.mamba_prefill(lp["mamba"], xin, cfg, impl=impl)
         return _apply_ffn(lp, h + out, layer, cfg), {"self": state}
     if layer.mixer != "rwkv6":
-        raise NotImplementedError(
-            f"mixer {layer.mixer!r} is not ported yet (ROADMAP A6)")
+        raise ValueError(layer.mixer)
     b, d = h.shape[0], h.shape[-1]
     heads, hd = rwkv_mod._dims(cfg)
     zeros = torch.zeros((b, d), dtype=h.dtype, device=h.device)
@@ -216,21 +257,29 @@ def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
 
 
 def apply_layer_decode(lp, h, layer: LayerSpec, cfg: ModelConfig, positions,
-                       cache, *, impl: str = "auto"):
-    """Single-token layer application.  h: [B,1,d]; positions: [B].
-    Updates ``cache`` (this layer's) in place and returns h."""
+                       cache, *, cross_len=None, impl: str = "auto"):
+    """Single-token layer application.  h: [B,1,d]; positions: [B];
+    ``cross_len`` [B], the valid frames of each row's ``cross`` cache
+    (all of them when None).  Updates ``cache["self"]`` (this layer's) in
+    place, reads ``cache["cross"]`` only, and returns h."""
     xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
     if layer.mixer == "attn":
-        out = attn_mod.gqa_decode(lp["attn"], xin, cache["self"], positions,
-                                  layer, cfg)
-        return _apply_ffn(lp, h + out, layer, cfg)
+        decode = (attn_mod.mla_decode if cfg.attn.kind == "mla"
+                  else attn_mod.gqa_decode)
+        h = h + decode(lp["attn"], xin, cache["self"], positions, layer, cfg)
+        if layer.cross_attn and "cross" in cache:
+            ck, cv = cache["cross"]["ck"], cache["cross"]["cv"]
+            if cross_len is None:
+                cross_len = torch.full((h.shape[0],), ck.shape[1],
+                                       device=h.device)
+            h = _cross(lp, h, cfg, ck, cv, kv_len=cross_len)
+        return _apply_ffn(lp, h, layer, cfg)
     if layer.mixer == "mamba":
         out = ssm_mod.mamba_decode(lp["mamba"], xin, cache["self"], cfg,
                                    impl=impl)
         return _apply_ffn(lp, h + out, layer, cfg)
     if layer.mixer != "rwkv6":
-        raise NotImplementedError(
-            f"mixer {layer.mixer!r} is not ported yet (ROADMAP A6)")
+        raise ValueError(layer.mixer)
     st = cache["self"]
     out, (new_shift, new_wkv) = rwkv_mod.rwkv_time_mix(
         lp["rwkv"], xin, st["shift_att"], st["wkv"], cfg, impl=impl)
@@ -264,14 +313,14 @@ def _stack(trees):
 
 
 def forward_seq(params, cfg: ModelConfig, h, positions, *, seq_cap: int,
-                impl: str = "auto"):
+                memory=None, impl: str = "auto"):
     """Runs the prefix and the period.  Returns (h, caches) laid out as
     ``cache_plan`` (period leaves stacked ``[repeats, ...]``)."""
     caches: Dict[str, Any] = {}
     period: Dict[str, list] = {}
     for lp, layer, _, (group, key, _) in layer_walk(cfg, params):
         h, c = apply_layer_seq(lp, h, layer, cfg, positions,
-                               seq_cap=seq_cap, impl=impl)
+                               seq_cap=seq_cap, memory=memory, impl=impl)
         if group == "prefix":
             caches.setdefault("prefix", {})[key] = c
         else:
@@ -281,29 +330,73 @@ def forward_seq(params, cfg: ModelConfig, h, positions, *, seq_cap: int,
     return h, caches
 
 
+def _merge_frontend(params, cfg: ModelConfig, tokens, embeds=None):
+    """VLM: project the patch embeds [B,P,E] and put them before the token
+    embeddings; without embeds (or a frontend) the token embeddings."""
+    h_tok = embed_tokens(params, cfg, tokens)
+    if embeds is None or cfg.frontend.kind == "none":
+        return h_tok
+    proj = einsum("bpe,ed->bpd", embeds.to(torch_dtype(cfg.dtype)),
+                  params["frontend_proj"])
+    return torch.cat([proj, h_tok], dim=1)
+
+
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, *, seq_cap=None,
-            impl: str = "auto"):
-    """tokens: [B,S] (positions ``arange(S)``).  Returns (last-token logits
-    [B,V] f32, decode cache with capacity ``seq_cap``)."""
-    h = embed_tokens(params, cfg, tokens)
-    b, s = tokens.shape
+def encode(params, cfg: ModelConfig, frames, *, impl: str = "auto"):
+    """The enc-dec encoder.  frames: [B,F,embed_dim] (the stubbed
+    frontend's output), projected, then per layer non-causal
+    self-attention (RoPE at positions ``arange(F)``, the flash kernel) and
+    a dense FFN; returns the normed memory [B,F,d]."""
+    h = einsum("bfe,ed->bfd", frames.to(torch_dtype(cfg.dtype)),
+               params["frontend_proj"])
+    b, f = h.shape[:2]
+    positions = torch.arange(f, dtype=torch.int32,
+                             device=h.device).expand(b, f)
+    enc = params["encoder"]
+    for r in range(cfg.encoder.num_layers):
+        lp = map_plan(lambda a: a[r], enc["period"]["sub0"])
+        xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
+        out, _ = attn_mod.gqa_prefill(lp["attn"], xin, positions,
+                                      ENCODER_LAYER, cfg, causal=False,
+                                      impl=impl)
+        h = _apply_ffn(lp, h + out, ENCODER_LAYER, cfg)
+    return rms_norm(h, enc["final_norm"], cfg.norm_eps)
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, frames=None,
+            seq_cap=None, impl: str = "auto"):
+    """tokens: [B,S]; ``embeds`` [B,P,E], a VLM's patch embeddings, put
+    before the tokens (positions ``arange(P + S)``); ``frames`` [B,F,E],
+    an enc-dec model's encoder input (the tokens are then the decoder's).
+    Returns (last-token logits [B,V] f32, decode cache with capacity
+    ``seq_cap``; an enc-dec cache also holds each layer's ``cross`` K/V
+    over the F frames)."""
+    memory = None
+    if cfg.encoder is not None:
+        memory = encode(params, cfg, frames, impl=impl)
+        h = embed_tokens(params, cfg, tokens)
+    else:
+        h = _merge_frontend(params, cfg, tokens, embeds)
+    b, s = h.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
     h, caches = forward_seq(params, cfg, h, positions,
-                            seq_cap=seq_cap or s, impl=impl)
+                            seq_cap=seq_cap or s, memory=memory, impl=impl)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), caches
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, token, positions, *,
-                impl: str = "auto"):
-    """token: [B]; positions: [B] int32.  Writes this token into ``cache``
-    in place and returns logits [B,V] f32."""
+                cross_len=None, impl: str = "auto"):
+    """token: [B]; positions: [B] int32; ``cross_len`` [B], the valid
+    frames of each row's cross-attention cache (all when None).  Writes
+    this token into ``cache`` in place and returns logits [B,V] f32."""
     h = embed_tokens(params, cfg, token[:, None])
     for lp, layer, lc, _ in layer_walk(cfg, params, cache):
-        h = apply_layer_decode(lp, h, layer, cfg, positions, lc, impl=impl)
+        h = apply_layer_decode(lp, h, layer, cfg, positions, lc,
+                               cross_len=cross_len, impl=impl)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h[:, 0])
 

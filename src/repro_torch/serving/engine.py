@@ -21,9 +21,22 @@ Backends (``backend=`` ctor arg, same public API either way):
 Differences from the reference's dense backend, none of which changes a
 token: the slot merge and every decode write go IN PLACE into the stacked
 cache (the JAX code builds a new cache); the timed region of a prefill
-covers the merge into the slot cache; a request whose prompt+max_new
-exceeds ``seq_cap`` is refused (``EXCEEDS_SEQ_CAP``) where the reference
-would write past the cache.
+covers the merge into the slot cache; a request whose tokens exceed
+``seq_cap`` is refused (``EXCEEDS_SEQ_CAP``) where the reference would
+write past the cache.
+
+Two faults of the reference's dense backend are repaired here (ROADMAP
+Queue C).  A VLM request's image prefix counts: after prefill the slot
+decodes at ``num_prefix + prompt_len``, not at ``prompt_len``, which would
+overwrite the prefix's K/V and rope at the wrong position, and the
+prefix counts against ``seq_cap``.  An enc-dec model is served: the slot
+cache holds each layer's cross-attention K/V over ``enc_cap = seq_cap``
+frames with a per-slot count of valid frames (``cross_len``), which
+decode masks by; the decoder, fed the BOS token alone, decodes from
+position 1.  (The reference plans its slot cache without the cross
+leaves, so its first enc-dec prefill fails to merge, and it would decode
+from ``prompt_len``.)  Page accounting stays the reference's:
+prompt+max_new pages reserved at submit, whatever the model.
 
 Guardrail hook (paper §2.2, MPS-quota analogue): ``set_quota(frac)`` caps
 the engine's concurrency, as in the reference: the number of active decode
@@ -144,6 +157,10 @@ class ServingEngine:
         elif response_cache is False:
             response_cache = None
         self.response_cache = response_cache
+        if backend == "paged":
+            # before any weight is made
+            from repro_torch.serving.paged_runtime import refuse_unsupported
+            refuse_unsupported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg, params, seed=seed, device=self.device)
@@ -187,8 +204,14 @@ class ServingEngine:
         # paged accounting mirrors the dense slot cache capacity
         self.kv = PagedKVCache(num_pages=max_slots * (seq_cap // page_size),
                                page_size=page_size)
-        self.cache = init_cache_from_plan(cache_plan(cfg, max_slots, seq_cap),
-                                          self.device)
+        # an enc-dec slot holds up to seq_cap frames, cross_len[slot] of
+        # them valid
+        enc_cap = seq_cap if cfg.encoder is not None else 0
+        self.cache = init_cache_from_plan(
+            cache_plan(cfg, max_slots, seq_cap, enc_cap), self.device)
+        self.cross_len = (torch.zeros(max_slots, dtype=torch.int32,
+                                      device=self.device)
+                          if enc_cap else None)
 
     # ------------------------------------------------------------------ API
     def set_quota(self, frac: float) -> None:
@@ -216,7 +239,7 @@ class ServingEngine:
         fit and resolves pool pressure by preemption."""
         if self.runtime is not None:
             return self.runtime.submit(req)
-        if req.prompt_len + req.max_new_tokens > self.seq_cap:
+        if self._slot_tokens(req) > self.seq_cap:
             return EXCEEDS_SEQ_CAP
         if not self.kv.can_admit(req.prompt_len, req.max_new_tokens):
             return POOL_EXHAUSTED
@@ -341,18 +364,32 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _slot_tokens(self, req: Request) -> int:
+        """The most positions of a slot's self-attention cache the request
+        fills: the image prefix, the prompt and the new tokens; for an
+        enc-dec model the decoder's BOS and new tokens, or the prompt's
+        frames if more (they fill the cross leaves, ``seq_cap`` long)."""
+        if self.cfg.encoder is not None:
+            return max(req.prompt_len, 1 + req.max_new_tokens)
+        return (self.cfg.frontend.num_prefix + req.prompt_len
+                + req.max_new_tokens)
+
     def _merge_slot_cache(self, cache1, slot: int) -> None:
         """Copy a single-sequence prefill cache into the batched slot cache
         IN PLACE.  Prefix-layer leaves are [batch, ...] but period leaves
         are stacked [repeats, batch, ...], so the period group is written
         along axis 1: writing it along axis 0 would put one request's KV on
-        the repeats axis of every slot."""
+        the repeats axis of every slot.  A leaf shorter than its slot (the
+        cross-attention K/V of F < enc_cap frames) fills the slot's leading
+        rows; the rest is masked by ``cross_len``."""
+        def into(dst, src):
+            dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
         if "prefix" in self.cache:
             _copy_leaves(self.cache["prefix"], cache1["prefix"],
-                         lambda full, one: full[slot].copy_(one[0]))
+                         lambda full, one: into(full[slot], one[0]))
         if "period" in self.cache:
             _copy_leaves(self.cache["period"], cache1["period"],
-                         lambda full, one: full[:, slot].copy_(one[:, 0]))
+                         lambda full, one: into(full[:, slot], one[:, 0]))
 
     def _prompt_tokens(self, req: Request):
         """[1, S] prompt; a request without tokens draws them from the
@@ -366,11 +403,27 @@ class ServingEngine:
     def _do_prefill(self, slot: int) -> StepReport:
         req = self.queue.popleft()
         tokens = self._prompt_tokens(req)
+        fe, dt = self.cfg.frontend, torch_dtype(self.cfg.dtype)
+        # the reference's stubs: zero patch embeds before the prompt (VLM);
+        # zero frames, one per prompt token, and the BOS token alone for
+        # the decoder (enc-dec)
+        kw, position = {}, fe.num_prefix + req.prompt_len
+        if fe.kind == "vision":
+            kw["embeds"] = torch.zeros((1, fe.num_prefix, fe.embed_dim),
+                                       dtype=dt, device=self.device)
+        if self.cfg.encoder is not None:
+            kw["frames"] = torch.zeros((1, req.prompt_len, fe.embed_dim),
+                                       dtype=dt, device=self.device)
+            tokens = torch.ones((1, 1), dtype=torch.long, device=self.device)
+            position = 1
         self._sync()
         t0 = time.perf_counter()
         logits, cache1 = prefill(self.params, self.cfg, tokens,
-                                 seq_cap=self.seq_cap, impl=self.attn_impl)
+                                 seq_cap=self.seq_cap, impl=self.attn_impl,
+                                 **kw)
         self._merge_slot_cache(cache1, slot)
+        if self.cross_len is not None:
+            self.cross_len[slot] = req.prompt_len
         first_tok = int(logits[0].argmax())
         self._sync()
         dt = time.perf_counter() - t0
@@ -379,7 +432,7 @@ class ServingEngine:
         req.generated = 1
         req.output_tokens.append(first_tok)
         self.slots[slot] = req
-        self.positions[slot] = req.prompt_len
+        self.positions[slot] = position
         self.last_token[slot] = first_tok
         report = StepReport(kind="prefill", compute_s=dt, tokens=req.prompt_len,
                             prefill_tokens=req.prompt_len, prefilled=[req])
@@ -398,7 +451,7 @@ class ServingEngine:
         self._sync()
         t0 = time.perf_counter()
         logits = decode_step(self.params, self.cfg, self.cache, toks, pos,
-                             impl=self.attn_impl)
+                             cross_len=self.cross_len, impl=self.attn_impl)
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         self._sync()
         dt = time.perf_counter() - t0

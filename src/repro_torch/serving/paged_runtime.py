@@ -82,6 +82,15 @@ def paged_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
+def refuse_unsupported(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` with the reason when the paged runtime cannot
+    serve ``cfg``."""
+    reason = paged_unsupported_reason(cfg)
+    if reason is not None:
+        raise ValueError(
+            f"paged backend does not support {reason} ({cfg.name})")
+
+
 def lane_rows_bucket(rows: int, spec_k: int, chunk: int) -> int:
     """Rows per lane of the step's lane-major call: the smallest of the
     buckets (1, 1 + spec_k, chunk) that holds ``rows``, so the kernel sees
@@ -127,10 +136,7 @@ class PagedRuntime:
                  kv_dtype: str = "auto", prefix_cache: bool = True,
                  spec_k: int = 0, response_cache=None, seed: int = 0,
                  device="cuda"):
-        reason = paged_unsupported_reason(cfg)
-        if reason is not None:
-            raise ValueError(
-                f"paged backend does not support {reason} ({cfg.name})")
+        refuse_unsupported(cfg)
         if kv_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
                              f"(expected 'auto' or 'int8')")

@@ -145,6 +145,15 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):
     (2, 100, 150, 4, 2, 50, True, 0, None, torch.bfloat16, 2e-2),
     (1, 100, 40, 4, 4, 64, True, 0, None, torch.bfloat16, 2e-2),  # zero rows
     (1, 150, 150, 4, 4, 256, True, 0, None, torch.bfloat16, 2e-2),
+    # this slice's geometries: Phi-3-vision's hd 96, MLA's 128 + 64 (and
+    # the reduced 32 + 16 in f32), the encoder's and cross-attention's
+    # non-causal calls with T off the 64-key tile
+    (1, 200, 200, 4, 4, 96, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 150, 150, 4, 4, 192, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 100, 100, 4, 4, 48, True, 0, None, torch.float32, 2e-3),
+    (1, 777, 777, 4, 4, 64, False, 0, None, torch.bfloat16, 2e-2),
+    (2, 1, 777, 4, 4, 64, False, 0, None, torch.bfloat16, 2e-2),
+    (2, 1, 100, 4, 4, 64, False, 0, None, torch.float32, 2e-3),
 ])
 def test_flash_kernel_matches_plain_version(cuda_device, b, s, t, h, kv, hd,
                                             causal, window, cap, dtype, tol):

@@ -1,6 +1,7 @@
-"""The four GQA configs the port serves with no model code of their own:
-OLMo 2 7B, Granite 3 8B, StarCoder2 7B and Gemma 2 27B, reduced, in
-float32, against the JAX package's engines on the same bridged weights.
+"""The five GQA configs the port serves with no model code of their own:
+OLMo 2 7B, Granite 3 8B, StarCoder2 7B, Gemma 2 27B and Mixtral 8x7B,
+reduced, in float32, against the JAX package's engines on the same bridged
+weights.
 
 Their sliding windows are cut to 16 tokens (``reduced`` keeps 4096, which
 these traces never reach), so every request's ring cache wraps over its
@@ -8,7 +9,8 @@ these traces never reach), so every request's ring cache wraps over its
 to the JAX dense engine for each config (Gemma 2 carries its attention
 softcap of 50, the final logit softcap of 30 and alternating window and
 global layers; StarCoder2 one kv head for four query heads at this width;
-Granite tied embeddings); OLMo 2, the one of them that the paged runtime
+Granite tied embeddings; Mixtral a windowed layer with 4 experts of top-2
+and their capacity drops); OLMo 2, the one of them that the paged runtime
 takes (MHA, no window), must also be token-identical to the JAX paged
 engine."""
 import dataclasses
@@ -30,7 +32,8 @@ from repro_torch.serving.request import Request
 WINDOW = 16
 # (prompt_len, max_new): every request decodes past the cut window
 TRACE = [(40, 24), (7, 22), (21, 20), (3, 26)]
-ARCHS = ("olmo2_7b", "granite_3_8b", "starcoder2_7b", "gemma2_27b")
+ARCHS = ("olmo2_7b", "granite_3_8b", "starcoder2_7b", "gemma2_27b",
+         "mixtral_8x7b")
 
 
 def _cut_windows(cfg):
@@ -67,7 +70,7 @@ def test_config_serves_token_identical_to_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     windows = {layer.window for layer in tcfg.layer_specs()}
     assert windows <= {0, WINDOW}
-    if arch in ("starcoder2_7b", "gemma2_27b"):
+    if arch in ("starcoder2_7b", "gemma2_27b", "mixtral_8x7b"):
         assert WINDOW in windows
     jparams = JaxModel(jcfg).init(jax.random.key(5))
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
