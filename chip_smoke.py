@@ -31,7 +31,11 @@ on its own line:
    at ragged B, H and S; the selective scan: Jamba's Mamba prefill with
    bf16 and f32 x, a ragged S, decode, two chained halves, D off the
    channel tile, N = 1, 13 and 64, and delta * A past the exponential's
-   flush to 0), with its
+   flush to 0; the flash backward: the training shape S = T = 4096, H =
+   KV = 32, hd 80 in bf16, f32 at hd 64, GQA with a window and softcap at
+   hd 128, non-causal T != S and MLA's hd 192, against its plain version
+   on the forward kernel's output and log-sum-exp, each gradient within
+   2e-2 (bf16) or 2e-3 (f32) of its max |value|), with its
    device time (replays of a CUDA graph of 20 calls; the eager time of
    back-to-back calls beside it), the plain version's, a one-call library
    yardstick's where PyTorch has one (also from a graph) and the least
@@ -82,7 +86,20 @@ on its own line:
    identity on the kernels: StableLM-3B full width x 2 layers in float32,
    a few paged steps on one engine, its lanes shipped with their pages to
    a second engine on the same weights and finished there, must give the
-   tokens of an uninterrupted run.
+   tokens of an uninterrupted run;
+8. training (``repro_torch.launch.train``): (a) full-width StableLM-3B in
+   bf16 with remat, one batch of 2 x 4096 tokens memorised for 6 AdamW
+   steps: the loss must fall, every leaf get a finite nonzero gradient,
+   and the flash forward launch exactly 32 x steps x 2 times (remat runs
+   it again in the backward) and its backward 32 x steps times; step
+   times, tokens a second, peak memory, gradient norms and losses are
+   printed, and the last step runs under ``torch.profiler`` for its
+   device time by kernel family and the device's idle share; (b) reduced StableLM in float32 trained 3 steps on the
+   kernels, each step's loss and every leaf's gradient held to the plain
+   versions' on the same weights and batch (1e-5 relative; 2e-3 of the
+   leaf's scale);
+   (c) a reduced RWKV-6 train step on the card must raise (its scan has
+   no backward kernel yet, ROADMAP A7.2).
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -94,6 +111,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -133,7 +151,7 @@ def device_info(torch) -> dict:
     info = {"nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0]}
-    log(f"[1/7] device: {info['kind']} x{info['count']}, torch "
+    log(f"[1/8] device: {info['kind']} x{info['count']}, torch "
         f"{info['torch']}, CUDA {info['cuda']}, python {info['python']}")
     log(smi)
     return info
@@ -143,12 +161,13 @@ def device_info(torch) -> dict:
 def kernel_modules() -> dict:
     """The wrapper module of every kernel of the paths, by kernel name."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import kernel_bwd as fab_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.selective_scan import kernel as scan_kernel
     return {"paged_attention_mixed": pa_kernel,
-            "flash_attention": fa_kernel, "rwkv6_scan": wkv_kernel,
-            "selective_scan": scan_kernel}
+            "flash_attention": fa_kernel, "flash_attention_bwd": fab_kernel,
+            "rwkv6_scan": wkv_kernel, "selective_scan": scan_kernel}
 
 
 def zero_counts() -> None:
@@ -162,7 +181,8 @@ def read_counts() -> dict:
 
 # kernels redesigned for the tensor cores: their libraries must hold
 # tensor-core instructions
-TENSOR_CORE_KERNELS = ("paged_attention_mixed", "flash_attention")
+TENSOR_CORE_KERNELS = ("paged_attention_mixed", "flash_attention",
+                       "flash_attention_bwd")
 
 
 def tensor_core_count(so: Path) -> dict:
@@ -190,7 +210,7 @@ def build_kernels() -> dict:
         mma = tensor_core_count(b.path)
         out[name] = {"so": b.path.name, "build_s": b.build_s,
                      "ptxas": ptxas, "tensor_core_sass": mma}
-        log(f"[2/7] built {name}: {b.path.name} in {b.build_s:.1f}s; "
+        log(f"[2/8] built {name}: {b.path.name} in {b.build_s:.1f}s; "
             f"tensor-core instructions in its SASS: HMMA {mma['HMMA']}, "
             f"HGMMA {mma['HGMMA']}")
         for ln in ptxas:
@@ -198,7 +218,7 @@ def build_kernels() -> dict:
         if name in TENSOR_CORE_KERNELS and not sum(mma.values()):
             raise AssertionError(f"{name}: no tensor-core instruction in "
                                  f"{b.path.name}")
-    log(f"[2/7] all kernels built in {time.perf_counter() - t0:.1f}s")
+    log(f"[2/8] all kernels built in {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -421,7 +441,7 @@ def check_kernels(torch) -> dict:
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "ops": ops}
         results.append(res)
-        log(f"[3/7] paged_attention_mixed {name}: B={q.shape[0]} "
+        log(f"[3/8] paged_attention_mixed {name}: B={q.shape[0]} "
             f"Q={q.shape[1]} "
             f"H={heads} KV={kv} hd={hd}: max_abs_err {err:.3g} (tol {tol})"
             f"{extra}; kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
@@ -556,7 +576,7 @@ def check_flash(torch) -> list:
                "ops": ops}
         results.append(res)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)"
-        log(f"[3/7] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
+        log(f"[3/8] flash_attention {name}: B={b} S={s} T={t} H={h} KV={kv} "
             f"hd={hd}: max_abs_err {err:.3g} (tol {tol}); kernel {ms:.4f} "
             f"ms (eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa {lib}, "
             f"bound "
@@ -566,6 +586,131 @@ def check_flash(torch) -> list:
             raise AssertionError(f"flash kernel disagrees with its plain "
                                  f"version on {name}: max_abs_err {err}")
         del q, k, v, out, ref, mask
+        torch.cuda.empty_cache()
+    return results
+
+
+def flash_bwd_bound(torch, q, k, mask):
+    """Least time for one backward call: q, k, v, o, dO and lse read once
+    and dq, dk, dv written once, against the five products of the
+    backward (S, dP, dV, dK, dQ: 10 * hd operations per kept pair and
+    query head, 2.5 times the forward's)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    es = q.element_size()
+    nbytes = 4 * (b * s * h * hd + b * t * kv * hd) * es + 4 * b * h * s
+    ops = 10 * hd * h * b * int(mask.sum())
+    return least_time(torch, nbytes, ops, q.dtype)
+
+
+def check_flash_bwd(torch) -> list:
+    """The forward as training launches it (asked for its log-sum-exp)
+    against ``flash_attention_ref``: o within ``tol``, lse within ``tol``
+    with +inf in the same rows.  Then the backward kernel on the kernel's
+    o and lse against ``flash_attention_bwd_ref`` on the plain version's
+    (same q, k, v and random dO), each gradient within ``tol`` of its own
+    max |value|; timed beside the plain version and SDPA's backward (the
+    port never calls SDPA)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import kernel_bwd as fab_kernel
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    # name, B, S, T, H, KV, hd, causal, window, softcap, dtype, tol; the
+    # first is the training shape (phase 8's StableLM-3B layer at batch 1)
+    cases = [
+        ("stablelm train bf16 S=T=4096", 1, 4096, 4096, 32, 32, 80, True, 0,
+         None, torch.bfloat16, 2e-2),
+        ("f32 H=KV=8 hd=64 S=T=1024", 1, 1024, 1024, 8, 8, 64, True, 0, None,
+         torch.float32, 2e-3),
+        ("gqa H=32 KV=8 hd=128 window 256 softcap 50 bf16", 1, 1024, 1024,
+         32, 8, 128, True, 256, 50.0, torch.bfloat16, 2e-2),
+        ("non-causal S=512 T=777 H=KV=16 hd=64 bf16", 2, 512, 777, 16, 16, 64,
+         False, 0, None, torch.bfloat16, 2e-2),
+        ("mla H=KV=128 hd=128+64 (V padded) S=T=1024 bf16", 1, 1024, 1024,
+         128, 128, 192, True, 0, None, torch.bfloat16, 2e-2),
+    ]
+    results = []
+    for (name, b, s, t, h, kv, hd, causal, window, cap, dt,
+         tol) in cases:
+        q, k, v = flash_inputs(torch, b, s, t, h, kv, hd, dt, seed=s + t + 1)
+        if name.startswith("mla"):
+            v[..., 128:] = 0
+        do = flash_inputs(torch, b, s, s, h, h, hd, dt, seed=s + 7)[0]
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+        live = torch.isfinite(lse_ref)
+        errs = {"o": float((o.float() - o_ref.float()).abs().max()),
+                "lse": float((lse - lse_ref)[live].abs().max())}
+        ok = bool(torch.allclose(o.float(), o_ref.float(), rtol=tol,
+                                 atol=tol)) and bool(torch.allclose(
+                                     lse[live], lse_ref[live], rtol=tol,
+                                     atol=tol)) and bool(torch.equal(
+                                         torch.isinf(lse), ~live))
+        args = (q, k, v, o, lse, do)
+        grads = fab_kernel.flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        refs = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        scales = {}
+        for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            scales[gname] = float(r.float().abs().max())
+            errs[gname] = float((g.float() - r.float()).abs().max())
+            ok = ok and errs[gname] <= tol * scales[gname] and bool(
+                torch.isfinite(g).all())
+        err = max(errs[g] for g in ("dq", "dk", "dv"))
+        del grads, refs, o_ref, lse_ref, live
+        iters = 5 if s * t > 2 ** 22 or h > 64 else 20
+        ms, eager_ms = (cuda_ms(torch, lambda: fab_kernel.flash_attention_bwd(
+            *args, **kw), iters=iters, graph=True),
+            cuda_ms(torch, lambda: fab_kernel.flash_attention_bwd(*args, **kw),
+                    iters=iters))
+        plain_ms = cuda_ms(torch, lambda: flash_attention_bwd_ref(*args, **kw),
+                           iters=2, warmup=1)
+        mask = flash_mask(torch, s, t, causal, window)
+        lib_ms = None
+        if cap is None:
+            # SDPA's backward on [B, H, S, hd] views, its forward outside
+            # the timing; the port never calls it
+            qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            plain_causal = causal and s == t and not window
+            sdpa_kw = (dict(is_causal=True) if plain_causal else
+                       dict(attn_mask=mask) if causal or window else {})
+            out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                 enable_gqa=kv != h,
+                                                 **sdpa_kw)
+            dos = do.transpose(1, 2)
+            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qs, ks, vs), dos, retain_graph=True), iters=iters)
+            del qs, ks, vs, out, dos
+        bound_ms, bound_by, nbytes, ops = flash_bwd_bound(torch, q, k, mask)
+        res = {"case": name, "shape": {"B": b, "S": s, "T": t, "H": h,
+                                       "KV": kv, "hd": hd},
+               "causal": causal, "window": window, "softcap": cap,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "errs": errs, "grad_max_abs": scales, "tol": tol,
+               "ok": ok, "ms": ms,
+               "eager_ms": eager_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+        results.append(res)
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)"
+        log(f"[3/8] flash_attention_bwd {name}: B={b} S={s} T={t} H={h} "
+            f"KV={kv} hd={hd}: forward o {errs['o']:.3g}, lse "
+            f"{errs['lse']:.3g} (tol {tol}); max_abs_err dq {errs['dq']:.3g} "
+            f"dk {errs['dk']:.3g} dv {errs['dv']:.3g} (tol {tol} x max|grad| "
+            f"{scales['dq']:.3g} {scales['dk']:.3g} {scales['dv']:.3g}); "
+            f"kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, sdpa backward {lib}, bound {bound_ms:.4f} "
+            f"ms ({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop)")
+        if not ok:
+            raise AssertionError(f"flash forward (with lse) or backward "
+                                 f"kernel disagrees with its plain version "
+                                 f"on {name}: {errs}, max|grad| {scales}")
+        del q, k, v, o, lse, do, args, mask
         torch.cuda.empty_cache()
     return results
 
@@ -647,7 +792,7 @@ def check_wkv(torch) -> list:
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops}
         results.append(res)
-        log(f"[3/7] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
+        log(f"[3/8] rwkv6_scan {name}: B={b} S={s} H={h} hd={hd}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
             f"{s_err:.3g} (rtol = atol = 1e-4); kernel {ms:.4f} ms (eager "
             f"{eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
@@ -794,7 +939,7 @@ def check_scan(torch) -> list:
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "ops": ops, "sfu_exp_ms": exp_ms}
         results.append(res)
-        log(f"[3/7] selective_scan {name}: B={b} S={s} D={d} N={n}: "
+        log(f"[3/8] selective_scan {name}: B={b} S={s} D={d} N={n}: "
             f"max_abs_err y {err:.3g} (rtol = atol = {tol}), state "
             f"{h_err:.3g} (rtol = atol = 1e-4){extra}; kernel {ms:.4f} ms "
             f"(eager {eager_ms:.4f}), plain {plain_ms:.4f} ms, library "
@@ -920,7 +1065,7 @@ def serve_full_width(torch) -> dict:
         launched = ", ".join(
             f"{k} launches {n} ({p} {kind} passes x {lay} launching layers)"
             for k, (n, p, lay, kind) in checks.items())
-        log(f"[4/7] serve {tag} full width ({out['layers']} layers, "
+        log(f"[4/8] serve {tag} full width ({out['layers']} layers, "
             f"weights {weights / 2**30:.2f} GiB"
             f"{', ' + str(env) if env else ''}): "
             f"completed {out['completed']}/{out['offered']}, {out['steps']} "
@@ -1008,7 +1153,7 @@ def engine_parity(torch) -> dict:
                 and not any(runs[(be, "ref")][2][k] for be in
                             ("paged", "dense") for k in runs[(be, "ref")][2]))
     for name, same in checks.items():
-        log(f"[5/7] engine parity, stablelm_3b full width x 2 layers, "
+        log(f"[5/8] engine parity, stablelm_3b full width x 2 layers, "
             f"float32 ({tf32}): {name}, {n_tok} tokens over "
             f"{len(PARITY_TRACE)} requests ({kinds.count('mixed')} mixed "
             f"steps of {len(kinds)} paged), identical={same}")
@@ -1022,7 +1167,7 @@ def engine_parity(torch) -> dict:
     same = rk[0] == rr[0]
     launched = (launched and rk[2]["rwkv6_scan"] > 0
                 and rr[2]["rwkv6_scan"] == 0)
-    log(f"[5/7] engine parity, rwkv6_1_6b full width x 2 layers, float32 "
+    log(f"[5/8] engine parity, rwkv6_1_6b full width x 2 layers, float32 "
         f"({tf32}): dense kernel vs plain, "
         f"{sum(len(o) for o in rr[0])} tokens over {len(PARITY_TRACE)} "
         f"requests, {rk[2]['rwkv6_scan']} scan launches, identical={same}")
@@ -1042,7 +1187,7 @@ def engine_parity(torch) -> dict:
     launched = (launched and jk[2]["selective_scan"] > 0
                 and jk[2]["flash_attention"] > 0
                 and not any(jr[2].values()))
-    log(f"[5/7] engine parity, jamba_v0_1_52b full width, period cut to "
+    log(f"[5/8] engine parity, jamba_v0_1_52b full width, period cut to "
         f"(mamba+moe, attn+dense), float32 ({tf32}): dense kernel vs "
         f"plain, {sum(len(o) for o in jr[0])} tokens over "
         f"{len(PARITY_TRACE)} requests, {jk[2]['selective_scan']} scan and "
@@ -1062,7 +1207,7 @@ def engine_parity(torch) -> dict:
         same = rk[0] == rr[0]
         launched = (launched and rk[2]["flash_attention"] > 0
                     and not any(rr[2].values()))
-        log(f"[5/7] engine parity, {arch} reduced, float32 ({tf32}): dense "
+        log(f"[5/8] engine parity, {arch} reduced, float32 ({tf32}): dense "
             f"kernel vs plain, {sum(len(o) for o in rr[0])} tokens over "
             f"{len(PARITY_TRACE)} requests, {rk[2]['flash_attention']} "
             f"flash launches, identical={same}")
@@ -1111,14 +1256,14 @@ def harness_run(torch, smi: str, tag: str, weights, **kw) -> dict:
     names = [k for k in out if k not in _FLEET]
     for name in names:
         o = out[name]
-        log(f"[6/7] ({smi}) {tag} {name}: completed {o['completed']} / "
+        log(f"[6/8] ({smi}) {tag} {name}: completed {o['completed']} / "
             f"offered {o['offered']} / shed {o['shed']} / rejected "
             f"{o['rejected']} {o['reject_reasons']} / expired "
             f"{o['expired']}, TTFT p50 {o['ttft_p50_ms']:.2f} ms p99 "
             f"{o['ttft_p99_ms']:.2f} ms, ITL p99 {o['itl_p99_ms']:.2f} ms, "
             f"{o['steps']} steps, measured compute {o['compute_s']:.3f} s, "
             f"logits_finite={o['logits_finite']}")
-    log(f"[6/7] ({smi}) {tag} fleet: actions {out.get('actions')}, "
+    log(f"[6/8] ({smi}) {tag} fleet: actions {out.get('actions')}, "
         f"arbiter_max_units {out.get('arbiter_max_units')}, routing "
         f"{out['routing']}, directory {out.get('directory')}, response "
         f"cache {out.get('response_cache')}, virtual "
@@ -1192,10 +1337,10 @@ def harness(torch, smi: str) -> dict:
         "cache-routed requests": runs["(b) paged routing"]["routing"]["T1"][
             "routed_cache"] > 0,
     }
-    log(f"[6/7] ({smi}) det_timing runs identical: {identical}; flash "
+    log(f"[6/8] ({smi}) det_timing runs identical: {identical}; flash "
         f"launches over the dense runs {flash}, paged launches {paged}")
     for name, ok in checks.items():
-        log(f"[6/7] check {name}: {ok}")
+        log(f"[6/8] check {name}: {ok}")
     runs["checks"] = checks
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
@@ -1235,7 +1380,7 @@ def failure_domains(torch, smi: str) -> dict:
     t1, faults = out["T1"], out["faults"]
     migs = out["migrations"]
     trace = json.loads(trace_path.read_text())
-    log(f"[7/7] ({smi}) (a) failure domains, stablelm_3b full width bf16, "
+    log(f"[7/8] ({smi}) (a) failure domains, stablelm_3b full width bf16, "
         f"1 tenant x 4 paged replicas: completed {t1['completed']} / "
         f"offered {t1['offered']} / shed {t1['shed']}, redriven "
         f"{t1['redriven']} {t1['redriven_ids']}, TTFT p50 "
@@ -1246,16 +1391,16 @@ def failure_domains(torch, smi: str) -> dict:
         f"virtual {out['device']['virtual_s']:.3f} s, wall {wall:.1f} s, "
         f"peak memory {out['device']['peak_mem_bytes'] / 2**30:.2f} GiB, "
         f"launches {counts}")
-    log(f"[7/7] ({smi}) (a) faults {faults['log']}, watchdog_fired "
+    log(f"[7/8] ({smi}) (a) faults {faults['log']}, watchdog_fired "
         f"{faults['watchdog_fired']}, actuator {faults.get('actuator')}")
     for m in migs:
-        log(f"[7/7] ({smi}) (a) migration t={m['t']:.3f} s {m['reason']} "
+        log(f"[7/8] ({smi}) (a) migration t={m['t']:.3f} s {m['reason']} "
             f"r{m['from']}->r{m['to']}: {m['warm']} warm / {m['cold']} "
             f"cold, {m['pages']} pages ({m['attached_pages']} attached, "
             f"{m['copied_pages']} copied), {m['bytes']} bytes, modelled "
             f"transfer {m['transfer_s'] * 1e3:.3f} ms, verify failures "
             f"{m['verify_failures']}")
-    log(f"[7/7] (a) Chrome trace: {len(trace['traceEvents'])} events in "
+    log(f"[7/8] (a) Chrome trace: {len(trace['traceEvents'])} events in "
         f"{trace_path.relative_to(ROOT)}")
     reasons = {m["reason"] for m in migs}
     checks = {
@@ -1283,7 +1428,7 @@ def failure_domains(torch, smi: str) -> dict:
     checks["migrated tokens identical"] = res["b"]["identical"]
     checks["every digest verified"] = res["b"]["verified"]
     for name, ok in checks.items():
-        log(f"[7/7] check {name}: {ok}")
+        log(f"[7/8] check {name}: {ok}")
     res["checks"] = checks
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
@@ -1349,7 +1494,7 @@ def migration_parity(torch) -> dict:
     verified = importer.verify_failures == 0 and warm == sum(
         m.warm for m in mans) and warm >= 1
     del params
-    log(f"[7/7] (b) migration parity, stablelm_3b full width x 2 layers, "
+    log(f"[7/8] (b) migration parity, stablelm_3b full width x 2 layers, "
         f"float32: {warm} of {len(mans)} lanes warm after 9 steps, "
         f"{shipped} pages ({nbytes} bytes) exported and imported in "
         f"{move_s * 1e3:.1f} ms, paged launches {counts['paged_attention_mixed']}"
@@ -1361,6 +1506,164 @@ def migration_parity(torch) -> dict:
     return {"identical": identical, "verified": verified, "warm": warm,
             "lanes": len(mans), "pages": shipped, "bytes": nbytes,
             "move_s": move_s}
+
+
+# ------------------------------------------------------------------ phase 8
+# full-width StableLM-3B trained on one card: bf16, remat, one synthetic
+# batch of 2 x 4096 tokens (train_4k's length) memorised for 6 steps
+TRAIN = dict(arch="stablelm_3b", steps=6, batch=2, seq=4096, lr=1e-3,
+             warmup=2, seed=0)
+
+
+def leaf_paths(tree, prefix=()) -> list:
+    """"/"-joined paths of a nested dict's leaves, in ``plan_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], prefix + (k,))]
+    return ["/".join(prefix)]
+
+
+def training(torch, smi: str) -> dict:
+    """(a) full-width StableLM-3B training through ``launch.train``; (b)
+    reduced float32 StableLM trained on the kernels and on the plain
+    versions from the same weights and batch; (c) a reduced RWKV-6 train
+    step on the card raises (its scan has no backward kernel yet)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.train import train_full_width
+    from repro_torch.models.model import Model, train_loss
+    from repro_torch.models.params import map_plan, plan_leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticTokenPipeline
+    from repro_torch.training.trainer import (batch_to_torch, grads_of,
+                                              trainable)
+
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN["arch"])
+    layers = sum(layer.mixer == "attn" for layer in cfg.layer_specs())
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_full_width(**TRAIN, device="cuda", profile=True,
+                           log=lambda m: log(f"[8/8] {m.strip()}"))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = TRAIN["steps"]
+    res.update(counts=counts, wall_s=wall, nvidia_smi=smi)
+    out["full_width"] = res
+    peak = res["peak_mem_bytes"] / 2**30
+    log(f"[8/8] train {cfg.name} full width ({res['layers']} layers, "
+        f"{res['params'] / 1e9:.3f} B params, bf16, remat, batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}, {steps} steps on one "
+        f"batch; {smi}): step ms {[round(x, 1) for x in res['step_ms']]} "
+        f"(the last under the profiler; of them AdamW "
+        f"{[round(x, 1) for x in res['optimizer_ms']]}), "
+        f"{res['tokens_per_s']:.0f} tokens/s "
+        f"(steps 2-{steps - 1}), peak "
+        f"{peak:.2f} GiB, grad norm "
+        f"{[round(x, 4) for x in res['grad_norms']]}, losses "
+        f"{[round(x, 4) for x in res['losses']]}, flash launches "
+        f"{counts['flash_attention']} (forward) "
+        f"{counts['flash_attention_bwd']} (backward), wall {wall:.1f} s")
+    prof = res["profile"]
+    log(f"[8/8] the last step under torch.profiler: device busy "
+        f"{prof['device_busy_ms']:.1f} ms in {prof['kernels']} kernels, "
+        f"idle share of an unprofiled step "
+        f"{prof['idle_share_unprofiled']:.3f}; by family (ms, share of "
+        f"busy): " + ", ".join(
+            f"{k} {v:.1f} ({prof['by_family_share_of_busy'][k]:.3f})"
+            for k, v in prof["by_family_ms"].items()))
+    if res["bad_grad_leaves"]:
+        raise AssertionError(f"leaves without a finite nonzero gradient: "
+                             f"{res['bad_grad_leaves']}")
+    if not res["losses"][-1] < res["losses"][0]:
+        raise AssertionError(f"the loss did not fall: {res['losses']}")
+    # remat recomputes each layer's forward in the backward
+    if counts["flash_attention"] != layers * steps * 2 or \
+            counts["flash_attention_bwd"] != layers * steps:
+        raise AssertionError(f"flash launches {counts} for {layers} "
+                             f"attention layers x {steps} steps")
+    if counts["rwkv6_scan"] or counts["selective_scan"] or \
+            counts["paged_attention_mixed"]:
+        raise AssertionError(f"a kernel off the path launched: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) float32 weights and activations, TF32 off.  The two paths are
+    # compared in lockstep, on the kernel run's weights at every step:
+    # Adam's g / (|g| + eps) turns a rounding difference in a near-zero
+    # gradient into a full-size update, so two separate runs drift apart
+    # by more than the kernels differ
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = reduced(get_config("stablelm_3b")).replace(dtype="float32")
+    params = trainable(map_plan(lambda t: t.float(), Model(
+        cfg, seed=8, device="cuda").params), "cuda")
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, 2, 96, seed=8)
+    batch = batch_to_torch(next(pipe), "cuda")
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    state = opt.init_state(params)
+    paths = leaf_paths(params)
+    losses, loss_err, grad_err, worst = [], 0.0, 0.0, None
+    counts = {}
+    for _ in range(3):
+        step = {}
+        for impl in ("ref", "auto"):
+            zero_counts()
+            loss = train_loss(params, cfg, batch, remat=True, impl=impl)
+            step[impl] = (float(loss.detach()), grads_of(loss, params))
+            torch.cuda.synchronize()
+            counts[impl] = read_counts()
+        (kl, kg), (rl, rg) = step["auto"], step["ref"]
+        losses.append((kl, rl))
+        loss_err = max(loss_err, abs(kl - rl) / abs(rl))
+        # each leaf's gradient against its own max |value|
+        for path, a, b in zip(paths, plan_leaves(kg), plan_leaves(rg)):
+            diff, top = float((a - b).abs().max()), float(b.abs().max())
+            rel = diff / top if top else (0.0 if diff == 0 else math.inf)
+            if not rel <= grad_err:
+                grad_err, worst = rel, path
+        params, state, _ = opt.apply_updates(ocfg, params, kg, state)
+        del step, kg, rg
+    ok = loss_err <= 1e-5 and grad_err <= 1e-4
+    kc, rc = counts["auto"], counts["ref"]
+    out["reduced_f32"] = {"losses": losses, "loss_rel_err": loss_err,
+                          "grad_rel_err": grad_err, "grad_worst_leaf": worst,
+                          "counts_kernel": kc, "counts_plain": rc, "ok": ok}
+    log(f"[8/8] train {cfg.name} float32 on the card, 3 steps on the "
+        f"kernels, each step's loss and gradients against the plain "
+        f"versions' on the same weights: losses (kernel, plain) "
+        f"{[(round(a, 6), round(b, 6)) for a, b in losses]}, max rel diff "
+        f"{loss_err:.2e} (tol 1e-5); every leaf's gradient max diff / "
+        f"its max|grad| {grad_err:.2e} (tol 1e-4; at {worst}); flash "
+        f"launches a "
+        f"step {kc['flash_attention']} + {kc['flash_attention_bwd']} "
+        f"backward (plain path: {rc['flash_attention']} + "
+        f"{rc['flash_attention_bwd']})")
+    if not ok:
+        raise AssertionError("reduced float32 training: kernels and plain "
+                             "versions disagree")
+    if not (kc["flash_attention"] and kc["flash_attention_bwd"]) or any(
+            rc.values()):
+        raise AssertionError(f"kernel run {kc}, plain run {rc}")
+    if losses[-1][0] >= losses[0][0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    # (c) RWKV-6's kernel path refuses autograd (A7.2)
+    cfg = reduced(get_config("rwkv6_1_6b"))
+    try:
+        train_full_width(cfg=cfg, steps=1, batch=1, seq=16, device="cuda",
+                         log=lambda m: None)
+    except RuntimeError as exc:
+        if "A7.2" not in str(exc):
+            raise
+        out["rwkv6_refuses"] = str(exc)
+        log(f"[8/8] train {cfg.name} on the card raises as it should: {exc}")
+    else:
+        raise AssertionError("an RWKV-6 train step on the kernel path did "
+                             "not raise")
+    return out
 
 
 def main() -> int:
@@ -1377,20 +1680,24 @@ def main() -> int:
     report["build"] = build_kernels()
     report["kernels"] = check_kernels(torch)
     report["kernels"]["flash_attention"] = check_flash(torch)
+    report["kernels"]["flash_attention_bwd"] = check_flash_bwd(torch)
     report["kernels"]["rwkv6_scan"] = check_wkv(torch)
     report["kernels"]["selective_scan"] = check_scan(torch)
     report["serve"] = serve_full_width(torch)
     report["parity"] = engine_parity(torch)
     report["harness"] = harness(torch, report["device"]["nvidia_smi"])
     report["failures"] = failure_domains(torch, report["device"]["nvidia_smi"])
+    report["training"] = training(torch, report["device"]["nvidia_smi"])
     report["total_s"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # per kernel: its source, the TPU kernel it replaces, and the serve
-    # run of phase 4 whose launches it reports; times from its first
-    # (main-path) case of phase 3
+    # per kernel: its source, the TPU kernel it replaces, and the run
+    # whose launches it reports (a serve of phase 4; the backward: phase
+    # 8's full-width training); times from its first (main-path) case of
+    # phase 3
+    serve_launches = report["serve"]
     meta = {
         "paged_attention_mixed": (
             "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1410,15 +1717,23 @@ def main() -> int:
             "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
             "src/repro/kernels/selective_scan/kernel.py:58",
             "jamba_v0_1_52b dense bf16"),
+        # the TPU path has no attention kernel with a backward: JAX
+        # differentiates the jnp attention of gqa_prefill
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_bwd.cu",
+            "jax.grad of src/repro/models/attention.py:196 (gqa_prefill)",
+            None),
     }
     summary = {"kernels": []}
     for name, (source, replaces, run) in meta.items():
         cases = report["kernels"][name]
         main_case = cases[0]
+        launches = (serve_launches[run]["launches"][name] if run else
+                    report["training"]["full_width"]["counts"][name])
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": report["serve"][run]["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

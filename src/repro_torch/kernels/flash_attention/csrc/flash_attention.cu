@@ -8,7 +8,12 @@
 // j < T, and j <= pos_q if causal, and j > pos_q - window if window > 0;
 // scores are scaled, optionally tanh-softcapped, and reduced by an online
 // softmax in f32; GQA head h reads kv head h / (H / KV).  A row that no key
-// reaches gives 0 (acc / (l + 1e-30)).  Output has q's dtype.
+// reaches gives 0 (acc / (l + 1e-30)).  Output has q's dtype.  Given a
+// non-null ``lse``, the kernel also writes each row's log-sum-exp
+// (f32 [B,H,S], natural log of the sum of exp(score) over its kept keys;
+// +inf for a row no key reaches), which the backward pass
+// (flash_attention_bwd.cu) recomputes the probabilities from; the serving
+// path passes null.
 //
 // What bounds it on an H100: at the serving path's prefill shapes
 // (S = T = 1024, H = KV = 32, hd = 80) the least time is the bytes of q, k,
@@ -87,8 +92,9 @@ size_t smem_bytes(int hd, int cols) {
 template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int seq_q, int seq_k, int heads, int kv_heads,
-    int hd, float scale, int causal, int window, float softcap) {
+    T* __restrict__ out, float* __restrict__ lse, int seq_q, int seq_k,
+    int heads, int kv_heads, int hd, float scale, int causal, int window,
+    float softcap) {
   const int q0 = blockIdx.x * kTileQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -245,12 +251,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int d = tx + 16 * c;
       if (d < hd) o_base[r * q_row + d] = from_f32<T>(acc[a][c] * inv);
     }
+    // l_row and m_row are the row's (reduced over the 16 threads of a row)
+    if (lse != nullptr && tx == 0)
+      lse[(size_t(b) * heads + h) * seq_q + q0 + r] =
+          l_row[a] > 0.f ? m_row[a] + logf(l_row[a]) : INFINITY;
   }
 }
 
 template <typename T, int kCols>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int seq_q, int seq_k, int heads, int kv_heads,
+                   float* lse, int batch, int seq_q, int seq_k, int heads,
+                   int kv_heads,
                    int hd, float scale, int causal, int window, float softcap,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(hd, kCols);
@@ -261,18 +272,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((seq_q + kTileQ - 1) / kTileQ, heads, batch);
   flash_attention_kernel<T, kCols><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq_q, seq_k, heads,
-      kv_heads, hd, scale, causal, window, softcap);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, seq_q, seq_k,
+      heads, kv_heads, hd, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int batch, int seq_q, int seq_k, int heads, int kv_heads,
+                     float* lse, int batch, int seq_q, int seq_k, int heads,
+                     int kv_heads,
                      int hd, float scale, int causal, int window,
                      float softcap, cudaStream_t stream) {
 #define FA_LAUNCH(COLS)                                                    \
-  return launch<T, COLS>(q, k, v, out, batch, seq_q, seq_k, heads,        \
+  return launch<T, COLS>(q, k, v, out, lse, batch, seq_q, seq_k, heads,   \
                          kv_heads, hd, scale, causal, window, softcap, stream)
   if (hd <= 64) FA_LAUNCH(4);
   if (hd <= 80) FA_LAUNCH(5);
@@ -315,14 +327,15 @@ size_t tc_smem_bytes() {
 
 // three blocks an SM for a head_dim up to 80 caps the registers at 170 a
 // thread, the faster build at StableLM's shapes; above, the accumulators
-// need more
-template <int kD>
+// need more.  kLse builds the variant that writes the log-sum-exp (the
+// training forward), so the serving build is the code it was without it.
+template <int kD, bool kLse>
 __global__ void __launch_bounds__(tc::kThreads, kD <= 80 ? 3 : 1)
     flash_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int seq_q, int seq_k, int heads, int kv_heads, int hd, float scale,
-    int causal, int window, float softcap, int vec) {
+    float* __restrict__ lse, int seq_q, int seq_k, int heads, int kv_heads,
+    int hd, float scale, int causal, int window, float softcap, int vec) {
   constexpr bool kQRegs = kD <= 128;
   constexpr int ld = kD + 8;
   // query tiles in the grid's slowest dimension, last (longest causal
@@ -441,16 +454,30 @@ __global__ void __launch_bounds__(tc::kThreads, kD <= 80 ? 3 : 1)
     const int r = lane / 4 + 8 * half;
     if (row_w + r < nq) o_base[r * q_row + d] = __float2bfloat16(x);
   });
+  if constexpr (kLse) {
+    // m is the row's max in log2 units (the same in the quad), l this
+    // thread's share of the sum of 2^(s - m): lse = m ln 2 + ln(sum)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float l = st.l[half];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int r = lane / 4 + 8 * half;
+      if ((lane & 3) == 0 && row_w + r < nq)
+        lse[(size_t(b) * heads + h) * seq_q + q0 + row_w + r] =
+            l > 0.f ? st.m[half] * 0.6931471805599453f + logf(l) : INFINITY;
+    }
+  }
 }
 
-template <int kD>
+template <int kD, bool kLse>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int batch, int seq_q, int seq_k, int heads,
+                      float* lse, int batch, int seq_q, int seq_k, int heads,
                       int kv_heads, int hd, float scale, int causal,
                       int window, float softcap, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<kD>,
+      flash_attention_tc_kernel<kD, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int vec = hd % 8 == 0 &&
@@ -458,21 +485,28 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                    reinterpret_cast<uintptr_t>(k) |
                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   const dim3 grid(heads, batch, (seq_q + tc::kTileQ - 1) / tc::kTileQ);
-  flash_attention_tc_kernel<kD><<<grid, tc::kThreads, smem, stream>>>(
+  flash_attention_tc_kernel<kD, kLse><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      seq_q, seq_k, heads, kv_heads, hd, scale, causal, window, softcap, vec);
+      lse, seq_q, seq_k, heads, kv_heads, hd, scale, causal, window, softcap,
+      vec);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
-                        void* out, int batch, int seq_q, int seq_k, int heads,
+                        void* out, float* lse, int batch, int seq_q,
+                        int seq_k, int heads,
                         int kv_heads, int hd, float scale, int causal,
                         int window, float softcap, cudaStream_t stream) {
-#define FA_TC_LAUNCH(D)                                                   \
-  return launch_tc<D>(q, k, v, out, batch, seq_q, seq_k, heads, kv_heads, \
-                      hd, scale, causal, window, softcap, stream)
+#define FA_TC_LAUNCH(D)                                                    \
+  return lse != nullptr                                                    \
+             ? launch_tc<D, true>(q, k, v, out, lse, batch, seq_q, seq_k,  \
+                                  heads, kv_heads, hd, scale, causal,      \
+                                  window, softcap, stream)                 \
+             : launch_tc<D, false>(q, k, v, out, lse, batch, seq_q, seq_k, \
+                                   heads, kv_heads, hd, scale, causal,     \
+                                   window, softcap, stream)
   if (hd <= 64) FA_TC_LAUNCH(64);
   if (hd <= 80) FA_TC_LAUNCH(80);
   if (hd <= 96) FA_TC_LAUNCH(96);
@@ -486,20 +520,21 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype codes shared with kernel.py: 0 float32, 1 bfloat16.  softcap <= 0
-// means none; window <= 0 means none.
+// means none; window <= 0 means none; lse may be null.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int batch, int seq_q, int seq_k,
+                               void* out, float* lse, int batch, int seq_q,
+                               int seq_k,
                                int heads, int kv_heads, int hd, float scale,
                                int causal, int window, float softcap,
                                int dtype, void* stream_handle) {
   cudaGetLastError();  // start from a clean error state
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (dtype == 0)
-    return int(dispatch<float>(q, k, v, out, batch, seq_q, seq_k, heads,
+    return int(dispatch<float>(q, k, v, out, lse, batch, seq_q, seq_k, heads,
                                kv_heads, hd, scale, causal, window, softcap,
                                stream));
   if (dtype == 1)
-    return int(dispatch_tc(q, k, v, out, batch, seq_q, seq_k, heads,
+    return int(dispatch_tc(q, k, v, out, lse, batch, seq_q, seq_k, heads,
                            kv_heads, hd, scale, causal, window, softcap,
                            stream));
   return int(cudaErrorInvalidValue);

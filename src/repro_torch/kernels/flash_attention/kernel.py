@@ -40,7 +40,7 @@ def build() -> BuiltLibrary:
     interface."""
     built = load_library("flash_attention", [SOURCE])
     fn = built.lib.flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -57,10 +57,12 @@ def _check(cond: bool, msg: str) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None, return_lse: bool = False):
     """q: [B,S,H,hd]; k/v: [B,T,KV,hd], all float32 or all bfloat16,
     contiguous.  Returns [B,S,H,hd] in q's dtype (queries end-aligned:
-    pos_q = i + T - S)."""
+    pos_q = i + T - S); with ``return_lse`` also each row's log-sum-exp,
+    f32 [B,H,S] (+inf for a row no key reaches), which the backward pass
+    reads (``kernel_bwd.py``)."""
     global launches
     _check(q.device.type == "cuda",
            f"q lies on {q.device}; the kernel runs on CUDA tensors only")
@@ -86,15 +88,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if scale is None:
         scale = 1.0 / float(hd) ** 0.5
     out = torch.empty_like(q)
-    if b == 0 or s == 0:
-        return out
-    if t_len == 0:
-        return out.zero_()
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if b == 0 or s == 0 or t_len == 0:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(float("inf"))
+        return (out, lse) if return_lse else out
     lib = build().lib
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, t_len, h, kv, hd, float(scale), int(bool(causal)), int(window),
+        lse.data_ptr() if lse is not None else None, b, s, t_len, h, kv,
+        hd, float(scale), int(bool(causal)), int(window),
         float(softcap) if softcap is not None else -1.0, _DTYPES[q.dtype],
         stream)
     if rc != 0:
@@ -102,4 +108,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
                            f"(cudaError {rc})")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

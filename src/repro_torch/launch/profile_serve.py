@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 _FAMILIES = (("paged_attention", ("paged_attention",)),
+             ("flash_attention_bwd", ("flash_bwd", "bwd_dot")),
              ("flash_attention", ("flash_attention",)),
              ("rwkv6_scan", ("rwkv6_scan",)),
              ("selective_scan", ("selective_scan",)),

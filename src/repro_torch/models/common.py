@@ -66,3 +66,16 @@ def gated_ffn(x, w_in, w_out, activation: str):
     gate, up = gu[..., 0, :], gu[..., 1, :]
     h = act_fn(activation)(gate) * up
     return einsum("...f,fd->...d", h, w_out)
+
+
+def cross_entropy_loss(logits, labels):
+    """logits: [B, S, V], labels: [B, S] int.  The mean over tokens of the
+    causal-LM cross-entropy, in f32, the row max held out of the gradient
+    (JAX's ``stop_gradient``)."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    tgt = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    tgt = tgt + m[..., 0]
+    return (lse - tgt).mean()

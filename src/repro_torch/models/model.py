@@ -1,9 +1,9 @@
 """Model assembly for every config of the repository: decoder stacks of
 GQA or MLA attention, Mamba and RWKV-6 mixers with dense or MoE FFNs, the
 VLM frontend's patch prefix and the enc-dec encoder with cross-attending
-decoder layers; the PyTorch twin of the parts of ``repro/models/model.py``
-that serving runs (``prefill`` and ``decode_step`` for the dense
-slot-cache backend; the paged runtime uses the layer pieces).
+decoder layers; the PyTorch twin of ``repro/models/model.py``: ``train_loss``
+for training, ``prefill`` and ``decode_step`` for the dense slot-cache
+backend (the paged runtime uses the layer pieces).
 
 Parameters keep the JAX plan's names and layouts (``wq [d,H,hd]``,
 ``w_in [d,2,ff]``, period leaves stacked ``[repeats, ...]``), so the weight
@@ -13,7 +13,10 @@ stacked parameters and caches, where the JAX package runs ``lax.scan``;
 ``decode_step`` writes each layer's self-attention or state cache IN PLACE
 through those views (the JAX code returns a new cache) and leaves the
 cross-attention K/V untouched, as the reference does.  The MoE
-load-balance loss is computed and dropped, as serving drops it.
+load-balance loss is summed over layers in ``forward_seq`` (``train_loss``
+adds it to the loss) and dropped in decode, as serving drops it.  A
+training forward builds no cache, and with ``remat`` each period repeat
+runs under ``torch.utils.checkpoint``, where JAX checkpoints the scan body.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -28,7 +32,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import einsum, gated_ffn, rms_norm, softcap
+from repro_torch.models.common import (cross_entropy_loss, einsum, gated_ffn,
+                                      rms_norm, softcap)
 from repro_torch.models.params import P, init_from_plan, map_plan, torch_dtype
 
 
@@ -184,20 +189,30 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens].to(torch_dtype(cfg.dtype))
 
 
-def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
+def _zero(h):
+    return torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
     """Residual dense gated FFN or MoE (``layer.ffn == "none"`` passes
-    through; the RWKV channel-mix runs inside the rwkv6 layer, as in JAX)."""
+    through; the RWKV channel-mix runs inside the rwkv6 layer, as in JAX).
+    Returns (h, aux): aux is the MoE load-balance loss, else 0."""
     if layer.ffn == "none":
-        return h
+        return h, _zero(h)
     if layer.ffn not in ("dense", "moe"):
         raise ValueError(layer.ffn)
     x = rms_norm(h, lp["norm2"], cfg.norm_eps)
     fspec = cfg.ffn_spec_for(layer)
     if layer.ffn == "moe":
-        out, _ = moe_mod.moe_ffn(lp["moe"], x, fspec, cfg)
-        return h + out
+        out, aux = moe_mod.moe_ffn(lp["moe"], x, fspec, cfg)
+        return h + out, aux
     return h + gated_ffn(x, lp["ffn"]["w_in"], lp["ffn"]["w_out"],
-                         fspec.activation)
+                         fspec.activation), _zero(h)
+
+
+def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
+    """``_ffn`` without the load-balance loss (decode and serving)."""
+    return _ffn(lp, h, layer, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -213,32 +228,41 @@ def _cross(lp, h, cfg: ModelConfig, ck, cv, *, kv_len=None,
 
 
 def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
-                    seq_cap: int, memory=None, impl: str = "auto"):
-    """Full-sequence (prefill) layer application from an empty state.
-    h: [B,S,d]; positions: [B,S], each row ``arange(S)``; ``memory``
-    [B,F,d], the encoder output a cross-attending layer reads.  Returns
-    (h, cache) with ``cache`` as ``layer_cache_plan`` lays it out."""
+                    seq_cap: int, memory=None, impl: str = "auto",
+                    want_cache: bool = True):
+    """Full-sequence (train / prefill) layer application from an empty
+    state.  h: [B,S,d]; positions: [B,S], each row ``arange(S)``;
+    ``memory`` [B,F,d], the encoder output a cross-attending layer reads.
+    Returns (h, aux, cache): ``aux`` the MoE load-balance loss (0 for
+    other FFNs), ``cache`` as ``layer_cache_plan`` lays it out when
+    ``want_cache`` (else None, and no K/V copy is made)."""
     xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
+    cache = {} if want_cache else None
     if layer.mixer == "attn":
         if cfg.attn.kind == "mla":
             out, (ckv, krope) = attn_mod.mla_prefill(
                 lp["attn"], xin, positions, layer, cfg, impl=impl)
-            cache = {"self": attn_mod.build_mla_cache(ckv, krope, positions,
-                                                      seq_cap)}
+            if want_cache:
+                cache["self"] = attn_mod.build_mla_cache(ckv, krope,
+                                                         positions, seq_cap)
         else:
             out, (k, v) = attn_mod.gqa_prefill(lp["attn"], xin, positions,
                                                layer, cfg, impl=impl)
-            cache = {"self": attn_mod.build_gqa_cache(k, v, positions, layer,
-                                                      seq_cap)}
+            if want_cache:
+                cache["self"] = attn_mod.build_gqa_cache(k, v, positions,
+                                                         layer, seq_cap)
         h = h + out
         if layer.cross_attn and memory is not None:
             ck, cv = attn_mod.cross_attn_kv(lp["cross"], memory)
             h = _cross(lp, h, cfg, ck, cv, impl=impl)
-            cache["cross"] = {"ck": ck, "cv": cv}
-        return _apply_ffn(lp, h, layer, cfg), cache
+            if want_cache:
+                cache["cross"] = {"ck": ck, "cv": cv}
+        return (*_ffn(lp, h, layer, cfg), cache)
     if layer.mixer == "mamba":
         out, state = ssm_mod.mamba_prefill(lp["mamba"], xin, cfg, impl=impl)
-        return _apply_ffn(lp, h + out, layer, cfg), {"self": state}
+        if want_cache:
+            cache["self"] = state
+        return (*_ffn(lp, h + out, layer, cfg), cache)
     if layer.mixer != "rwkv6":
         raise ValueError(layer.mixer)
     b, d = h.shape[0], h.shape[-1]
@@ -251,9 +275,10 @@ def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
     h = h + out
     # channel-mix (rwkv ffn) with its own shift state
     cm_out, new_cm = rwkv_mod.rwkv_channel_mix(lp["rwkv"], h, zeros)
-    cache = {"self": {"shift_att": new_shift, "shift_ffn": new_cm,
-                      "wkv": new_wkv}}
-    return h + cm_out, cache
+    if want_cache:
+        cache["self"] = {"shift_att": new_shift, "shift_ffn": new_cm,
+                         "wkv": new_wkv}
+    return h + cm_out, _zero(h), cache
 
 
 def apply_layer_decode(lp, h, layer: LayerSpec, cfg: ModelConfig, positions,
@@ -312,22 +337,65 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _period_repeats(params, cfg: ModelConfig):
+    """Per repeat of the period, its layers' parameters as views of the
+    stacked leaves: one ``unbind`` a leaf, so a gradient is stacked once a
+    step (a view per repeat by indexing would give each repeat's gradient
+    the stacked leaf's full size)."""
+    unbound = map_plan(lambda a: a.unbind(0), params["period"])
+    return [map_plan(lambda t, r=r: t[r], unbound)
+            for r in range(cfg.repeats)]
+
+
+def _period_repeat(lps, h, aux, cfg: ModelConfig, positions, kw):
+    """One repeat of the period: (h, aux, {sub: cache})."""
+    caches = {}
+    for i, layer in enumerate(cfg.period):
+        h, a, caches[f"sub{i}"] = apply_layer_seq(lps[f"sub{i}"], h, layer,
+                                                  cfg, positions, **kw)
+        aux = aux + a
+    return h, aux, caches
+
+
+def _remat_repeat(lps, h, aux, cfg: ModelConfig, positions, kw):
+    return _period_repeat(lps, h, aux, cfg, positions, kw)[:2]
+
+
 def forward_seq(params, cfg: ModelConfig, h, positions, *, seq_cap: int,
-                memory=None, impl: str = "auto"):
-    """Runs the prefix and the period.  Returns (h, caches) laid out as
-    ``cache_plan`` (period leaves stacked ``[repeats, ...]``)."""
+                memory=None, impl: str = "auto", want_cache: bool = True,
+                remat: bool = False):
+    """Runs the prefix and the period.  Returns (h, caches, aux): the
+    caches laid out as ``cache_plan`` (period leaves stacked
+    ``[repeats, ...]``) when ``want_cache``, else None; ``aux`` the MoE
+    load-balance loss summed over layers (f32 scalar).  With ``remat`` (a
+    training forward, no cache) each period repeat keeps only its input
+    for the backward and recomputes the rest there."""
+    if remat and want_cache:
+        raise ValueError("remat is for a training forward, without a cache")
+    kw = dict(seq_cap=seq_cap, memory=memory, impl=impl,
+              want_cache=want_cache)
+    aux = _zero(h)
     caches: Dict[str, Any] = {}
+    for i, layer in enumerate(cfg.prefix):
+        key = f"layer{i}"
+        h, a, c = apply_layer_seq(params["prefix"][key], h, layer, cfg,
+                                  positions, **kw)
+        aux = aux + a
+        caches.setdefault("prefix", {})[key] = c
     period: Dict[str, list] = {}
-    for lp, layer, _, (group, key, _) in layer_walk(cfg, params):
-        h, c = apply_layer_seq(lp, h, layer, cfg, positions,
-                               seq_cap=seq_cap, memory=memory, impl=impl)
-        if group == "prefix":
-            caches.setdefault("prefix", {})[key] = c
-        else:
+    for lps in (_period_repeats(params, cfg) if cfg.period else ()):
+        if remat and torch.is_grad_enabled():
+            h, aux = checkpoint(_remat_repeat, lps, h, aux, cfg, positions,
+                                kw, use_reentrant=False)
+            continue
+        h, aux, cs = _period_repeat(lps, h, aux, cfg, positions, kw)
+        for key, c in cs.items():
             period.setdefault(key, []).append(c)
+    if not want_cache:
+        return h, None, aux
     if period:
         caches["period"] = {k: _stack(cs) for k, cs in period.items()}
-    return h, caches
+    return h, caches, aux
 
 
 def _merge_frontend(params, cfg: ModelConfig, tokens, embeds=None):
@@ -341,7 +409,12 @@ def _merge_frontend(params, cfg: ModelConfig, tokens, embeds=None):
     return torch.cat([proj, h_tok], dim=1)
 
 
-@torch.no_grad()
+def _positions(h):
+    """[B,S] int32, each row ``arange(S)``, for h [B,S,d]."""
+    b, s = h.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
+
+
 def encode(params, cfg: ModelConfig, frames, *, impl: str = "auto"):
     """The enc-dec encoder.  frames: [B,F,embed_dim] (the stubbed
     frontend's output), projected, then per layer non-causal
@@ -349,18 +422,42 @@ def encode(params, cfg: ModelConfig, frames, *, impl: str = "auto"):
     a dense FFN; returns the normed memory [B,F,d]."""
     h = einsum("bfe,ed->bfd", frames.to(torch_dtype(cfg.dtype)),
                params["frontend_proj"])
-    b, f = h.shape[:2]
-    positions = torch.arange(f, dtype=torch.int32,
-                             device=h.device).expand(b, f)
+    positions = _positions(h)
     enc = params["encoder"]
+    # per-layer views by one unbind a leaf, as _period_repeats
+    layers = map_plan(lambda a: a.unbind(0), enc["period"]["sub0"])
     for r in range(cfg.encoder.num_layers):
-        lp = map_plan(lambda a: a[r], enc["period"]["sub0"])
+        lp = map_plan(lambda t: t[r], layers)
         xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
         out, _ = attn_mod.gqa_prefill(lp["attn"], xin, positions,
                                       ENCODER_LAYER, cfg, causal=False,
                                       impl=impl)
         h = _apply_ffn(lp, h + out, ENCODER_LAYER, cfg)
     return rms_norm(h, enc["final_norm"], cfg.norm_eps)
+
+
+def train_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
+               impl: str = "auto"):
+    """batch: {tokens [B,S], labels [B,S_text], embeds? [B,P,E] (a VLM's
+    patches, before the tokens), frames? [B,F,E] (an enc-dec model's
+    encoder input)}.  The causal-LM cross-entropy of the logits at the
+    last ``S_text`` positions (the text tokens) against the labels, plus
+    the MoE load-balance loss; no cache is built.  A scalar f32 tensor."""
+    memory = None
+    if cfg.encoder is not None:
+        memory = encode(params, cfg, batch["frames"], impl=impl)
+        h = embed_tokens(params, cfg, batch["tokens"])
+    else:
+        h = _merge_frontend(params, cfg, batch["tokens"],
+                            batch.get("embeds"))
+    h, _, aux = forward_seq(params, cfg, h, _positions(h), seq_cap=h.shape[1],
+                            memory=memory, impl=impl, want_cache=False,
+                            remat=remat)
+    s_text = batch["labels"].shape[1]
+    # the norm and the logits are per position: only the text rows' are made
+    h = rms_norm(h[:, -s_text:], params["final_norm"], cfg.norm_eps)
+    loss = cross_entropy_loss(_logits(params, cfg, h), batch["labels"])
+    return loss + aux
 
 
 @torch.no_grad()
@@ -378,11 +475,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, frames=None,
         h = embed_tokens(params, cfg, tokens)
     else:
         h = _merge_frontend(params, cfg, tokens, embeds)
-    b, s = h.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=h.device).expand(b, s)
-    h, caches = forward_seq(params, cfg, h, positions,
-                            seq_cap=seq_cap or s, memory=memory, impl=impl)
+    h, caches, _ = forward_seq(params, cfg, h, _positions(h),
+                               seq_cap=seq_cap or h.shape[1], memory=memory,
+                               impl=impl)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), caches
 

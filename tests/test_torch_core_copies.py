@@ -17,7 +17,7 @@ COPIES = (
     "core/faults.py", "core/controller.py", "sim/params.py",
     "sim/cluster.py", "serving/directory.py", "serving/gateway.py",
     "serving/request.py", "serving/kvcache.py", "serving/sched.py",
-    "serving/metrics.py", "serving/trace.py",
+    "serving/metrics.py", "serving/trace.py", "training/data.py",
 )
 # modules of the harness's packages that are twins, not copies
 TWINS = ("core/topology.py",)

@@ -173,6 +173,115 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, t, h, kv, hd,
                                ref.float().cpu().numpy(), rtol=tol, atol=tol)
 
 
+# the backward's cases: the forward's option set at sizes off every tile
+# (64-row tiles up to hd 128, 32 above), GQA, T != S, rows no key reaches
+FLASH_BWD_CASES = [
+    (1, 200, 200, 4, 4, 80, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 200, 200, 4, 4, 80, True, 0, None, torch.float32, 2e-3),
+    (2, 130, 130, 4, 4, 64, True, 0, None, torch.float32, 2e-3),
+    (1, 300, 300, 8, 2, 128, True, 128, 50.0, torch.bfloat16, 2e-2),
+    (1, 300, 300, 8, 2, 128, True, 128, 50.0, torch.float32, 2e-3),
+    (2, 100, 150, 4, 2, 50, False, 0, None, torch.bfloat16, 2e-2),
+    (1, 100, 40, 4, 4, 64, True, 0, None, torch.float32, 2e-3),   # zero rows
+    (1, 150, 150, 4, 4, 192, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 70, 70, 2, 2, 256, True, 0, None, torch.float32, 2e-3),
+    (1, 100, 100, 4, 4, 48, True, 0, None, torch.float32, 2e-3),
+    (2, 1, 100, 4, 4, 64, False, 0, None, torch.float32, 2e-3),
+    (1, 96, 96, 6, 2, 96, False, 0, 30.0, torch.bfloat16, 2e-2),
+]
+
+
+def _flash_bwd_inputs(seed, b, s, t, h, kv, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device, dtype) for shape in
+            ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd), (b, s, h, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap,dtype,tol",
+                         FLASH_BWD_CASES)
+def test_flash_lse_matches_plain_version(cuda_device, b, s, t, h, kv, hd,
+                                         causal, window, cap, dtype, tol):
+    """The forward's log-sum-exp (+inf where no key counts) is the plain
+    version's, and asking for it leaves the output as it was."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v, _ = _flash_bwd_inputs(s + hd, b, s, t, h, kv, hd, dtype,
+                                   cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = fkernel.flash_attention(q, k, v, return_lse=True, **kw)
+    plain_out = fkernel.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    live = torch.isfinite(lse_ref)
+    np.testing.assert_allclose(lse[live].cpu().numpy(),
+                               lse_ref[live].cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap,dtype,tol",
+                         FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_version(cuda_device, b, s, t, h, kv,
+                                                hd, causal, window, cap,
+                                                dtype, tol):
+    """dq, dk, dv of the backward kernel against ``flash_attention_bwd_ref``
+    on the same inputs, within ``tol`` of each gradient's own max |value|
+    (2e-3 f32, 2e-2 bf16), and through ``FlashAttentionFn`` by autograd."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import kernel_bwd as bkernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    q, k, v, do = _flash_bwd_inputs(s + t + hd, b, s, t, h, kv, hd, dtype,
+                                    cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    o = o.contiguous()
+    before = bkernel.launches
+    grads = bkernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert bkernel.launches == before + 1
+    refs = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        scale = float(r.float().abs().max())
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+    # the autograd route launches the forward and the backward kernel; its
+    # backward reads the forward kernel's own output and log-sum-exp
+    qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+    out = flash_attention(qa, ka, va, impl="kernel", **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert bkernel.launches == before + 2
+    o_k, lse_k = fkernel.flash_attention(q, k, v, return_lse=True, **kw)
+    refs = flash_attention_bwd_ref(q, k, v, o_k, lse_k, do, **kw)
+    for name, x, r in zip("qkv", (qa, ka, va), refs):
+        scale = float(r.float().abs().max())
+        err = float((x.grad.float() - r.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.flash_attention import kernel_bwd as bkernel
+    q, k, v, do = _flash_bwd_inputs(1, 1, 8, 8, 2, 2, 16, torch.float32,
+                                    cuda_device)
+    lse = torch.zeros((1, 2, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="lse"):
+        bkernel.flash_attention_bwd(q, k, v, q, lse.bfloat16(), do)
+    with pytest.raises(ValueError, match="contiguous"):
+        bkernel.flash_attention_bwd(q, k, v, q, lse, do.transpose(1, 2)
+                                    .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        bkernel.flash_attention_bwd(q.cpu(), k.cpu(), v.cpu(), q.cpu(),
+                                    lse.cpu(), do.cpu())
+
+
 # ------------------------------------------------------------------- wkv
 def _wkv_inputs(seed, b, s, h, hd):
     """r/k/v/w (w in (0.45, 0.95)), u and a random initial state, f32."""
