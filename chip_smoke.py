@@ -9,10 +9,11 @@ on its own line:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build every kernel of the paths from the checkout's sources (one
-   ``nvcc`` per source, all started together), and count each library's
-   tensor-core instructions (``HMMA`` from mma.sync, ``HGMMA`` from
-   wgmma, in ``cuobjdump --dump-sass``): a tensor-core kernel's library
-   with none fails;
+   ``nvcc`` per source, all started together: the four forwards and the
+   three backwards), and count each library's tensor-core instructions
+   (``HMMA`` from mma.sync, ``HGMMA`` from wgmma, in ``cuobjdump
+   --dump-sass``): a tensor-core kernel's library with none fails (the
+   scans' CUDA-core backwards are counted, not required to have any);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (paged attention: the runtime's lane-major
    call first, then the same rows row-major, as the JAX runtime calls,
@@ -35,7 +36,16 @@ on its own line:
    KV = 32, hd 80 in bf16, f32 at hd 64, GQA with a window and softcap at
    hd 128, non-causal T != S and MLA's hd 192, against its plain version
    on the forward kernel's output and log-sum-exp, each gradient within
-   2e-2 (bf16) or 2e-3 (f32) of its max |value|), with its
+   2e-2 (bf16) or 2e-3 (f32) of its max |value|; the WKV backward at
+   RWKV-6's training shape B 2, S 4096, H 32, hd 64, then a ragged S with
+   an initial state and a cotangent on the final state, hd 16, 32 and 128
+   at ragged B and H, and w past f32 underflow; the selective-scan
+   backward at Jamba's training shape B 2, S 4096, D 8192, N 16 with x in
+   bf16, then x in f32, a ragged S, D off the channel tile, N = 1, 13 and
+   64, h0 with a cotangent on the final state, and delta * A past the
+   exponential's flush to 0; each backward against its plain version by
+   formula on the same inputs, every gradient within 2e-3 (2e-2 for bf16
+   x) of its max |value|), with its
    device time (replays of a CUDA graph of 20 calls; the eager time of
    back-to-back calls beside it), the plain version's, a one-call library
    yardstick's where PyTorch has one (also from a graph) and the least
@@ -87,19 +97,22 @@ on its own line:
    a few paged steps on one engine, its lanes shipped with their pages to
    a second engine on the same weights and finished there, must give the
    tokens of an uninterrupted run;
-8. training (``repro_torch.launch.train``): (a) full-width StableLM-3B in
-   bf16 with remat, one batch of 2 x 4096 tokens memorised for 6 AdamW
-   steps: the loss must fall, every leaf get a finite nonzero gradient,
-   and the flash forward launch exactly 32 x steps x 2 times (remat runs
-   it again in the backward) and its backward 32 x steps times; step
-   times, tokens a second, peak memory, gradient norms and losses are
-   printed, and the last step runs under ``torch.profiler`` for its
-   device time by kernel family and the device's idle share; (b) reduced StableLM in float32 trained 3 steps on the
+8. training (``repro_torch.launch.train``): (a) full-width StableLM-3B,
+   (c) full-width RWKV-6 1.6B (lr 1e-4, see ``TRAIN_RUNS``) and (d)
+   Jamba at its published widths cut to the first two layers of its
+   period, each in bf16 with remat, one batch of 2 x 4096 tokens
+   memorised for 6 AdamW steps: the loss must fall, every leaf get a
+   finite nonzero gradient, the peak stay under 75 GiB, and each layer's
+   kernels launch exactly steps x 2 times (forward; remat runs it again in
+   the backward) and steps times (backward), no other kernel launching;
+   step times, tokens a second, peak memory, gradient norms and losses
+   are printed, and the last step runs under ``torch.profiler`` for its
+   device time by kernel family and the device's idle share; (b) and (e)
+   reduced StableLM, RWKV-6 and Jamba in float32 trained 3 steps on the
    kernels, each step's loss and every leaf's gradient held to the plain
-   versions' on the same weights and batch (1e-5 relative; 2e-3 of the
-   leaf's scale);
-   (c) a reduced RWKV-6 train step on the card must raise (its scan has
-   no backward kernel yet, ROADMAP A7.2).
+   versions' on the same weights and batch (1e-5 relative; 1e-4 of the
+   leaf's max |grad|); (f) ``examples/train_small.py``'s twin (reduced
+   Jamba, 200 steps) on the card: the loss must fall.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -164,10 +177,14 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.flash_attention import kernel_bwd as fab_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd as wkvb_kernel
     from repro_torch.kernels.selective_scan import kernel as scan_kernel
+    from repro_torch.kernels.selective_scan import kernel_bwd as scanb_kernel
     return {"paged_attention_mixed": pa_kernel,
             "flash_attention": fa_kernel, "flash_attention_bwd": fab_kernel,
-            "rwkv6_scan": wkv_kernel, "selective_scan": scan_kernel}
+            "rwkv6_scan": wkv_kernel, "selective_scan": scan_kernel,
+            "rwkv6_scan_bwd": wkvb_kernel,
+            "selective_scan_bwd": scanb_kernel}
 
 
 def zero_counts() -> None:
@@ -711,6 +728,207 @@ def check_flash_bwd(torch) -> list:
                                  f"kernel disagrees with its plain version "
                                  f"on {name}: {errs}, max|grad| {scales}")
         del q, k, v, o, lse, do, args, mask
+        torch.cuda.empty_cache()
+    return results
+
+
+def hold_grads(torch, names, grads, refs, tol):
+    """Each gradient against its plain version, relative to the plain
+    version's own max |value|: (ok, max abs errors, max |value|s)."""
+    errs, scales, ok = {}, {}, True
+    for name, g, r in zip(names, grads, refs):
+        scales[name] = float(r.float().abs().max())
+        errs[name] = float((g.float() - r.float()).abs().max())
+        ok = ok and bool(torch.isfinite(g).all()) and \
+            errs[name] <= tol * scales[name]
+    return ok, errs, scales
+
+
+def wkv_bwd_bound(torch, r):
+    """Least time for one backward call: r, k, v, w and dy read once, dr,
+    dk, dv and dw written once (and u, du, s0, the cotangent of s_final
+    and ds0), against the f32 operations the gradient needs: per state
+    element and step the rerun of S (2), the adjoint G (2) and the sums
+    of dr, dk, dw and dv (2 each); per head and step ~10 hd for the u
+    terms and du."""
+    b, s, h, hd = r.shape
+    n = b * s * h * hd
+    nbytes = 9 * n * 4 + 2 * h * hd * 4 + 3 * b * h * hd * hd * 4
+    ops = (12 * hd + 10) * hd * h * b * s
+    return least_time(torch, nbytes, ops, torch.float32)
+
+
+def check_wkv_bwd(torch) -> list:
+    """The WKV backward kernel against ``rwkv6_scan_bwd_ref`` on the same
+    inputs and cotangents, every gradient within 2e-3 of its own max
+    |value|, f32 throughout; timed beside the plain version (a Python
+    loop over S: at the training shape timed once, after no warm-up)."""
+    import numpy as np
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd as wkvb_kernel
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
+
+    # name, B, S, H, hd, s0 and a cotangent on s_final, w_log = 6 on some
+    # channels; the first is the training shape (phase 8's RWKV-6 layer)
+    cases = [("rwkv6 train B=2 S=4096 H=32 hd=64", 2, 4096, 32, 64, False,
+              False),
+             ("ragged S=1000, s0 and ds_final", 2, 1000, 8, 64, True, False),
+             ("hd 16, B=3 H=5 S=45", 3, 45, 5, 16, True, False),
+             ("hd 32, B=3 H=5 S=70", 3, 70, 5, 32, True, False),
+             ("hd 128, B=3 H=5 S=70", 3, 70, 5, 128, True, False),
+             ("w past f32 underflow (w_log = 6 on a third of the channels)",
+              2, 200, 4, 64, True, True)]
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    tol = 2e-3
+    results = []
+    for name, b, s, h, hd, with_state, underflow in cases:
+        r, k, v, w, u, s0 = wkv_inputs(torch, b, s, h, hd, torch.float32,
+                                       seed=s + hd)
+        rng = np.random.default_rng(s + hd + 1)
+        if underflow:
+            # w = exp(-exp(6)) = exp(-403) is 0 in f32
+            w[..., ::3] = float(np.exp(-np.exp(6.0)))
+        if not with_state:
+            s0.zero_()
+        dy = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(
+            np.float32)).to("cuda")
+        dsf = (torch.from_numpy((rng.standard_normal((b, h, hd, hd)) * 0.1)
+                                .astype(np.float32)).to("cuda")
+               if with_state else torch.zeros_like(s0))
+        args = (r, k, v, w, u, s0, dy, dsf)
+        grads = wkvb_kernel.rwkv6_scan_bwd(*args)
+        torch.cuda.synchronize()
+        refs = rwkv6_scan_bwd_ref(*args)
+        ok, errs, scales = hold_grads(torch, names, grads, refs, tol)
+        del grads, refs
+        big = s * b * h > 2 ** 16
+        ms = cuda_ms(torch, lambda: wkvb_kernel.rwkv6_scan_bwd(*args),
+                     iters=5 if big else 20, graph=True)
+        plain_ms = cuda_ms(torch, lambda: rwkv6_scan_bwd_ref(*args),
+                           iters=1 if big else 3, warmup=0 if big else 1)
+        bound_ms, bound_by, nbytes, ops = wkv_bwd_bound(torch, r)
+        err = max(errs.values())
+        results.append({
+            "case": name, "shape": {"B": b, "S": s, "H": h, "hd": hd},
+            "dtype": "float32", "s0_and_ds_final": with_state,
+            "w_underflow": underflow, "max_abs_err": err, "errs": errs,
+            "grad_max_abs": scales, "tol": tol, "ok": ok, "ms": ms,
+            "plain_ms": plain_ms, "plain_iters": 1 if big else 3,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": ops})
+        log(f"[3/8] rwkv6_scan_bwd {name}: B={b} S={s} H={h} hd={hd}: "
+            f"max_abs_err " + " ".join(f"{g} {errs[g]:.3g}" for g in names)
+            + f" (tol {tol} x max|grad| " + " ".join(
+                f"{scales[g]:.3g}" for g in names) + f"); kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.1f} ms ({'1 call' if big else '3 calls'}),"
+            f" library none, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop)")
+        if not ok:
+            raise AssertionError(f"WKV backward kernel disagrees with its "
+                                 f"plain version on {name}: {errs}, "
+                                 f"max|grad| {scales}")
+        del args, r, k, v, w, u, s0, dy, dsf
+        torch.cuda.empty_cache()
+    return results
+
+
+def scan_bwd_bound(torch, x, n):
+    """Least time for one backward call: x, delta and dy read once, dx and
+    ddelta written once, B, C, dB, dC, A, dA, D, dD, h0, the cotangent of
+    h_final and dh0 once each, against the f32 operations the gradient
+    needs: per (step, channel, state) the rerun of h with its exponential
+    (4), the adjoint (3), ddelta's and dA's terms (5), dx's, dB's and
+    dC's (4); per (step, channel) ~8.  Also returns the exponentials' time
+    on the special-function units, once (the design evaluates them three
+    times)."""
+    b, s, d = x.shape
+    es = x.element_size()
+    nbytes = (b * s * d * (3 * es + 8) + 4 * b * s * n * 4
+              + 2 * d * n * 4 + 2 * d * 4 + 3 * b * d * n * 4)
+    ops = b * s * d * (16 * n + 8)
+    exp_ms = b * s * d * n / (SFU_PER_CLK_SM * SM_COUNT * BOOST_HZ) * 1e3
+    return least_time(torch, nbytes, ops, torch.float32) + (exp_ms,)
+
+
+def check_scan_bwd(torch) -> list:
+    """The selective-scan backward kernel against
+    ``selective_scan_bwd_ref`` on the same inputs and cotangents, every
+    gradient within 2e-3 (x f32) or 2e-2 (x bf16: dy comes in bf16 and dx
+    leaves rounded) of its own max |value|; timed beside the plain
+    version (a Python loop over S: at the training shape timed once)."""
+    import numpy as np
+    from repro_torch.kernels.selective_scan import kernel_bwd as scanb_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+
+    # name, B, S, D, N, x dtype, h0 and a cotangent on h_final, wide A;
+    # the first is the training shape (phase 8's Jamba Mamba layer)
+    cases = [("jamba train B=2 S=4096 D=8192 N=16 x bf16", 2, 4096, 8192, 16,
+              torch.bfloat16, False, False),
+             ("x f32 S=1024", 1, 1024, 8192, 16, torch.float32, False, False),
+             ("ragged S=1000 x f32", 1, 1000, 2048, 16, torch.float32, False,
+              False),
+             ("D=8200 off the channel tile S=70 x bf16", 1, 70, 8200, 16,
+              torch.bfloat16, False, False),
+             ("N=1 D=1000 S=45 x f32", 2, 45, 1000, 1, torch.float32, True,
+              False),
+             ("N=13 D=1001 S=50 x f32", 2, 50, 1001, 13, torch.float32, True,
+              False),
+             ("N=64 D=1024 S=40 x f32", 2, 40, 1024, 64, torch.float32, True,
+              False),
+             ("h0 and dh_final S=300 x f32", 2, 300, 1024, 16, torch.float32,
+              True, False),
+             ("delta * A past the exponential's flush to 0 x f32", 2, 96,
+              1024, 16, torch.float32, True, True)]
+    names = ("dx", "ddelta", "da", "db", "dc", "dd", "dh0")
+    results = []
+    for name, b, s, d, n, dt, with_state, wide in cases:
+        tol = 2e-2 if dt == torch.bfloat16 else 2e-3
+        x, delta, a, bm, cm, dd = scan_inputs(torch, b, s, d, n, dt,
+                                              seed=s + n, with_h0=False,
+                                              wide_a=wide)
+        rng = np.random.default_rng(s + n + 1)
+
+        def dev(shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                    .astype(np.float32)).to("cuda")
+        h0 = dev((b, d, n), 0.1) if with_state else \
+            torch.zeros((b, d, n), device="cuda")
+        dhf = dev((b, d, n), 0.1) if with_state else torch.zeros_like(h0)
+        dy = dev((b, s, d)).to(dt)
+        args = (x, delta, a, bm, cm, dd, h0, dy, dhf)
+        grads = scanb_kernel.selective_scan_bwd(*args)
+        torch.cuda.synchronize()
+        refs = selective_scan_bwd_ref(*args)
+        ok, errs, scales = hold_grads(torch, names, grads, refs, tol)
+        del grads, refs
+        big = s * b * d > 2 ** 24
+        ms = cuda_ms(torch, lambda: scanb_kernel.selective_scan_bwd(*args),
+                     iters=5 if big else 20, graph=True)
+        plain_ms = cuda_ms(torch, lambda: selective_scan_bwd_ref(*args),
+                           iters=1 if big else 3, warmup=0 if big else 1)
+        bound_ms, bound_by, nbytes, ops, exp_ms = scan_bwd_bound(torch, x, n)
+        err = max(errs.values())
+        results.append({
+            "case": name, "shape": {"B": b, "S": s, "D": d, "N": n},
+            "x_dtype": str(dt).replace("torch.", ""),
+            "h0_and_dh_final": with_state, "wide_a": wide,
+            "max_abs_err": err, "errs": errs, "grad_max_abs": scales,
+            "tol": tol, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+            "plain_iters": 1 if big else 3, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "sfu_exp_ms": exp_ms})
+        log(f"[3/8] selective_scan_bwd {name}: B={b} S={s} D={d} N={n}: "
+            f"max_abs_err " + " ".join(f"{g} {errs[g]:.3g}" for g in names)
+            + f" (tol {tol} x max|grad| " + " ".join(
+                f"{scales[g]:.3g}" for g in names) + f"); kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.1f} ms ({'1 call' if big else '3 calls'}),"
+            f" library none, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop; the exponentials "
+            f"once on the SFUs {exp_ms:.4f} ms)")
+        if not ok:
+            raise AssertionError(f"selective-scan backward kernel disagrees "
+                                 f"with its plain version on {name}: {errs}, "
+                                 f"max|grad| {scales}")
+        del args, x, delta, a, bm, cm, dd, h0, dhf, dy
         torch.cuda.empty_cache()
     return results
 
@@ -1509,10 +1727,28 @@ def migration_parity(torch) -> dict:
 
 
 # ------------------------------------------------------------------ phase 8
-# full-width StableLM-3B trained on one card: bf16, remat, one synthetic
-# batch of 2 x 4096 tokens (train_4k's length) memorised for 6 steps
-TRAIN = dict(arch="stablelm_3b", steps=6, batch=2, seq=4096, lr=1e-3,
-             warmup=2, seed=0)
+# full-width models trained on one card: bf16, remat, one synthetic batch
+# of 2 x 4096 tokens (train_4k's length) memorised for 6 steps.
+# StableLM-3B and RWKV-6 1.6B whole; Jamba at its published widths cut in
+# depth to the first two layers of its period (Mamba + dense FFN, Mamba +
+# MoE): its 51.6 B parameters do not fit one card.  RWKV-6 at lr 1e-4: its
+# channel-mix runs on the residual stream without a norm (as the
+# reference's, src/repro/models/model.py:216), so from random weights two
+# Adam steps at 1e-3 (three at 3e-4) grow the stream past bf16's range,
+# on the plain versions as on the kernels
+TRAIN = dict(steps=6, batch=2, seq=4096, warmup=2, seed=0)
+TRAIN_RUNS = (("stablelm_3b", None, 1e-3), ("rwkv6_1_6b", None, 1e-4),
+              ("jamba_v0_1_52b", 2, 1e-3))
+# the kernels a layer's mixer launches in a training step: its forward
+# twice (remat reruns it in the backward) and its backward once
+MIXER_KERNELS = {"attn": ("flash_attention", "flash_attention_bwd"),
+                 "rwkv6": ("rwkv6_scan", "rwkv6_scan_bwd"),
+                 "mamba": ("selective_scan", "selective_scan_bwd")}
+PEAK_LIMIT_GIB = 75.0
+# examples/train_small.py's twin on the card (launch.train's reduced branch)
+TRAIN_SMALL = ["--arch", "jamba_v0_1_52b", "--steps", "200", "--batch", "8",
+               "--seq", "64", "--lr", "1e-3", "--device", "cuda",
+               "--expect-loss-drop"]
 
 
 def leaf_paths(tree, prefix=()) -> list:
@@ -1524,48 +1760,54 @@ def leaf_paths(tree, prefix=()) -> list:
     return ["/".join(prefix)]
 
 
-def training(torch, smi: str) -> dict:
-    """(a) full-width StableLM-3B training through ``launch.train``; (b)
-    reduced float32 StableLM trained on the kernels and on the plain
-    versions from the same weights and batch; (c) a reduced RWKV-6 train
-    step on the card raises (its scan has no backward kernel yet)."""
-    from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch.train import train_full_width
-    from repro_torch.models.model import Model, train_loss
-    from repro_torch.models.params import map_plan, plan_leaves
-    from repro_torch.training import optimizer as opt
-    from repro_torch.training.data import SyntheticTokenPipeline
-    from repro_torch.training.trainer import (batch_to_torch, grads_of,
-                                              trainable)
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Every kernel's launches in ``steps`` remat training steps of
+    ``cfg``: per layer of a mixer, its forward kernel twice a step and its
+    backward kernel once; 0 for every other kernel."""
+    want = {name: 0 for name in kernel_modules()}
+    for layer in cfg.layer_specs():
+        fwd, bwd = MIXER_KERNELS[layer.mixer]
+        want[fwd] += 2 * steps
+        want[bwd] += steps
+    return want
 
-    out = {}
+
+def train_full(torch, smi: str, arch: str, period_layers, lr) -> dict:
+    """One full-width training run through ``launch.train``: the loss
+    falls, every leaf gets a finite nonzero gradient, the peak stays under
+    75 GiB and every kernel launches exactly as the layers predict."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import train_full_width, with_period_layers
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN["arch"])
-    layers = sum(layer.mixer == "attn" for layer in cfg.layer_specs())
+    cfg = get_config(arch)
+    if period_layers is not None:
+        cfg = with_period_layers(cfg, period_layers)
     zero_counts()
     t0 = time.perf_counter()
-    res = train_full_width(**TRAIN, device="cuda", profile=True,
+    res = train_full_width(arch, **TRAIN, lr=lr, device="cuda",
+                           profile=True, period_layers=period_layers,
                            log=lambda m: log(f"[8/8] {m.strip()}"))
     wall = time.perf_counter() - t0
     counts = read_counts()
     steps = TRAIN["steps"]
     res.update(counts=counts, wall_s=wall, nvidia_smi=smi)
-    out["full_width"] = res
     peak = res["peak_mem_bytes"] / 2**30
-    log(f"[8/8] train {cfg.name} full width ({res['layers']} layers, "
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"[8/8] train {res['arch']} full width ({res['layers']} layers"
+        f"{'; ' + res['cut'] if res['cut'] else ''}; "
         f"{res['params'] / 1e9:.3f} B params, bf16, remat, batch "
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, {steps} steps on one "
-        f"batch; {smi}): step ms {[round(x, 1) for x in res['step_ms']]} "
+        f"batch, lr {lr:g}; {smi}): step ms "
+        f"{[round(x, 1) for x in res['step_ms']]} "
         f"(the last under the profiler; of them AdamW "
         f"{[round(x, 1) for x in res['optimizer_ms']]}), "
         f"{res['tokens_per_s']:.0f} tokens/s "
         f"(steps 2-{steps - 1}), peak "
         f"{peak:.2f} GiB, grad norm "
         f"{[round(x, 4) for x in res['grad_norms']]}, losses "
-        f"{[round(x, 4) for x in res['losses']]}, flash launches "
-        f"{counts['flash_attention']} (forward) "
-        f"{counts['flash_attention_bwd']} (backward), wall {wall:.1f} s")
+        f"{[round(x, 4) for x in res['losses']]}, launches {launched}, "
+        f"wall {wall:.1f} s")
     prof = res["profile"]
     log(f"[8/8] the last step under torch.profiler: device busy "
         f"{prof['device_busy_ms']:.1f} ms in {prof['kernels']} kernels, "
@@ -1579,25 +1821,33 @@ def training(torch, smi: str) -> dict:
                              f"{res['bad_grad_leaves']}")
     if not res["losses"][-1] < res["losses"][0]:
         raise AssertionError(f"the loss did not fall: {res['losses']}")
-    # remat recomputes each layer's forward in the backward
-    if counts["flash_attention"] != layers * steps * 2 or \
-            counts["flash_attention_bwd"] != layers * steps:
-        raise AssertionError(f"flash launches {counts} for {layers} "
-                             f"attention layers x {steps} steps")
-    if counts["rwkv6_scan"] or counts["selective_scan"] or \
-            counts["paged_attention_mixed"]:
-        raise AssertionError(f"a kernel off the path launched: {counts}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    if peak >= PEAK_LIMIT_GIB:
+        raise AssertionError(f"peak {peak:.2f} GiB over {PEAK_LIMIT_GIB}")
+    want = expected_train_launches(cfg, steps)
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    return res
 
-    # (b) float32 weights and activations, TF32 off.  The two paths are
-    # compared in lockstep, on the kernel run's weights at every step:
-    # Adam's g / (|g| + eps) turns a rounding difference in a near-zero
-    # gradient into a full-size update, so two separate runs drift apart
-    # by more than the kernels differ
+
+def train_lockstep(torch, arch: str) -> dict:
+    """Reduced ``arch`` in float32 (TF32 off) trained 3 steps on the
+    kernels, each step's loss and every leaf's gradient held to the plain
+    versions' on the same weights and batch (loss 1e-5 relative, each
+    leaf 1e-4 of its own max |grad|).  The two paths are compared in
+    lockstep, on the kernel run's weights at every step: Adam's
+    g / (|g| + eps) turns a rounding difference in a near-zero gradient
+    into a full-size update, so two separate runs drift apart by more
+    than the kernels differ."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import Model, train_loss
+    from repro_torch.models.params import map_plan, plan_leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticTokenPipeline
+    from repro_torch.training.trainer import (batch_to_torch, grads_of,
+                                              trainable)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = reduced(get_config("stablelm_3b")).replace(dtype="float32")
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
     params = trainable(map_plan(lambda t: t.float(), Model(
         cfg, seed=8, device="cuda").params), "cuda")
     pipe = SyntheticTokenPipeline(cfg.vocab_size, 2, 96, seed=8)
@@ -1628,41 +1878,60 @@ def training(torch, smi: str) -> dict:
         del step, kg, rg
     ok = loss_err <= 1e-5 and grad_err <= 1e-4
     kc, rc = counts["auto"], counts["ref"]
-    out["reduced_f32"] = {"losses": losses, "loss_rel_err": loss_err,
-                          "grad_rel_err": grad_err, "grad_worst_leaf": worst,
-                          "counts_kernel": kc, "counts_plain": rc, "ok": ok}
+    want = expected_train_launches(cfg, 1)
+    launched = {k: v for k, v in kc.items() if v}
     log(f"[8/8] train {cfg.name} float32 on the card, 3 steps on the "
         f"kernels, each step's loss and gradients against the plain "
         f"versions' on the same weights: losses (kernel, plain) "
         f"{[(round(a, 6), round(b, 6)) for a, b in losses]}, max rel diff "
         f"{loss_err:.2e} (tol 1e-5); every leaf's gradient max diff / "
-        f"its max|grad| {grad_err:.2e} (tol 1e-4; at {worst}); flash "
-        f"launches a "
-        f"step {kc['flash_attention']} + {kc['flash_attention_bwd']} "
-        f"backward (plain path: {rc['flash_attention']} + "
-        f"{rc['flash_attention_bwd']})")
+        f"its max|grad| {grad_err:.2e} (tol 1e-4; at {worst}); launches a "
+        f"step {launched} (plain path: {sum(rc.values())})")
     if not ok:
-        raise AssertionError("reduced float32 training: kernels and plain "
-                             "versions disagree")
-    if not (kc["flash_attention"] and kc["flash_attention_bwd"]) or any(
-            rc.values()):
-        raise AssertionError(f"kernel run {kc}, plain run {rc}")
+        raise AssertionError(f"reduced float32 training of {arch}: kernels "
+                             f"and plain versions disagree")
+    # a step launches each layer's kernels (forward once, remat again,
+    # backward once); the plain path none
+    if kc != want:
+        raise AssertionError(f"kernel run launches {kc}, expected {want}")
+    if any(rc.values()):
+        raise AssertionError(f"the plain run launched kernels: {rc}")
     if losses[-1][0] >= losses[0][0]:
         raise AssertionError(f"the loss did not fall: {losses}")
+    return {"losses": losses, "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "grad_worst_leaf": worst,
+            "counts_kernel": kc, "counts_plain": rc, "ok": ok}
 
-    # (c) RWKV-6's kernel path refuses autograd (A7.2)
-    cfg = reduced(get_config("rwkv6_1_6b"))
-    try:
-        train_full_width(cfg=cfg, steps=1, batch=1, seq=16, device="cuda",
-                         log=lambda m: None)
-    except RuntimeError as exc:
-        if "A7.2" not in str(exc):
-            raise
-        out["rwkv6_refuses"] = str(exc)
-        log(f"[8/8] train {cfg.name} on the card raises as it should: {exc}")
-    else:
-        raise AssertionError("an RWKV-6 train step on the kernel path did "
-                             "not raise")
+
+def training(torch, smi: str) -> dict:
+    """(a) full-width StableLM-3B, (c) full-width RWKV-6 1.6B and (d) the
+    Jamba cut trained through ``launch.train``; (b) and (e) reduced
+    float32 StableLM, RWKV-6 and Jamba trained on the kernels and on the
+    plain versions from the same weights and batch; (f)
+    ``examples/train_small.py``'s twin on the card."""
+    from repro_torch.launch.train import main as train_main
+    out = {"full_width": {}, "reduced_f32": {}}
+    for arch, period_layers, lr in TRAIN_RUNS:
+        out["full_width"][arch] = train_full(torch, smi, arch, period_layers,
+                                             lr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("stablelm_3b", "rwkv6_1_6b", "jamba_v0_1_52b"):
+        out["reduced_f32"][arch] = train_lockstep(torch, arch)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_main(TRAIN_SMALL)
+    counts = read_counts()
+    out["train_small"] = {"losses": res.losses, "counts": counts,
+                          "wall_s": time.perf_counter() - t0}
+    log(f"[8/8] examples/train_small.py's twin (launch.train "
+        f"{' '.join(TRAIN_SMALL)}): loss {res.losses[0]:.4f} -> "
+        f"{res.losses[-1]:.4f} in {len(res.losses)} steps, "
+        f"{out['train_small']['wall_s']:.1f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if not (counts["selective_scan"] and counts["selective_scan_bwd"]):
+        raise AssertionError(f"the twin did not run the scan kernels: "
+                             f"{counts}")
     return out
 
 
@@ -1681,6 +1950,8 @@ def main() -> int:
     report["kernels"] = check_kernels(torch)
     report["kernels"]["flash_attention"] = check_flash(torch)
     report["kernels"]["flash_attention_bwd"] = check_flash_bwd(torch)
+    report["kernels"]["rwkv6_scan_bwd"] = check_wkv_bwd(torch)
+    report["kernels"]["selective_scan_bwd"] = check_scan_bwd(torch)
     report["kernels"]["rwkv6_scan"] = check_wkv(torch)
     report["kernels"]["selective_scan"] = check_scan(torch)
     report["serve"] = serve_full_width(torch)
@@ -1694,10 +1965,11 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # per kernel: its source, the TPU kernel it replaces, and the run
-    # whose launches it reports (a serve of phase 4; the backward: phase
-    # 8's full-width training); times from its first (main-path) case of
-    # phase 3
+    # whose launches it reports (a serve of phase 4; a backward: phase 8's
+    # full-width training of the model named); times from its first
+    # (main-path) case of phase 3
     serve_launches = report["serve"]
+    trained = report["training"]["full_width"]
     meta = {
         "paged_attention_mixed": (
             "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1723,14 +1995,26 @@ def main() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention_bwd.cu",
             "jax.grad of src/repro/models/attention.py:196 (gqa_prefill)",
-            None),
+            "train stablelm_3b"),
+        # nor with a recurrence kernel: JAX differentiates the lax.scan of
+        # the time-mix and the associative scan of the Mamba layer
+        "rwkv6_scan_bwd": (
+            "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan_bwd.cu",
+            "jax.grad of src/repro/models/rwkv.py:118",
+            "train rwkv6_1_6b"),
+        "selective_scan_bwd": (
+            "src/repro_torch/kernels/selective_scan/csrc/"
+            "selective_scan_bwd.cu",
+            "jax.grad of src/repro/models/ssm.py:104",
+            "train jamba_v0_1_52b"),
     }
     summary = {"kernels": []}
     for name, (source, replaces, run) in meta.items():
         cases = report["kernels"][name]
         main_case = cases[0]
-        launches = (serve_launches[run]["launches"][name] if run else
-                    report["training"]["full_width"]["counts"][name])
+        launches = (trained[run[6:]]["counts"][name]
+                    if run.startswith("train ") else
+                    serve_launches[run]["launches"][name])
         summary["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,

@@ -7,31 +7,50 @@
                    version for CPU tensors;
   * ``"kernel"`` — always the CUDA kernel (a CPU tensor raises);
   * ``"ref"``    — always the plain PyTorch version (only ever asked for
-                   explicitly, e.g. by parity runs).
+                   explicitly, e.g. by parity runs), differentiated by
+                   autograd when a gradient is wanted.
 
-The kernel has no backward yet (ROADMAP A7.2): on the kernel path, with
-grad mode on and an input that requires a gradient, the call raises
-rather than return an output that autograd cannot see through.  The
-plain version is differentiable, so the CPU path trains.
+When grad mode is on and an input requires a gradient, ``"auto"`` and
+``"kernel"`` go through :class:`SelectiveScanFn`: its backward is the
+backward kernel on CUDA tensors and that kernel's plain version (by
+formula) on CPU tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.selective_scan import kernel as _kernel
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan import kernel_bwd as _kernel_bwd
+from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
 
 _IMPLS = ("auto", "kernel", "ref")
 
 
-def _refuse_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "selective_scan: the CUDA kernel has no backward yet (it comes "
-            "in ROADMAP A7.2), so its output would carry no gradient; "
-            "train this model on the CPU path or call under "
-            "torch.no_grad()")
+class SelectiveScanFn(torch.autograd.Function):
+    """The selective scan with a hand-written backward: (x, delta, a, b,
+    c, d, h0) -> (y, h_final), saving the seven inputs; the backward takes
+    the cotangents of both outputs (zeros for an unused one).
+    ``use_kernel`` picks the CUDA kernels (forward and backward), else
+    their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, delta, a, b, c, d, h0, use_kernel):
+        fwd = _kernel.selective_scan if use_kernel else selective_scan_ref
+        y, h_final = fwd(x, delta, a, b, c, d, h0)
+        ctx.save_for_backward(x, delta, a, b, c, d, h0)
+        ctx.use_kernel = use_kernel
+        return y, h_final
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_final):
+        bwd = (_kernel_bwd.selective_scan_bwd if ctx.use_kernel
+               else selective_scan_bwd_ref)
+        grads = bwd(*ctx.saved_tensors, dy.contiguous(),
+                    dh_final.contiguous())
+        return (*grads, None)
 
 
 def selective_scan(x, delta, a, b, c, d, h0=None, *, impl: str = "auto"):
@@ -40,11 +59,19 @@ def selective_scan(x, delta, a, b, c, d, h0=None, *, impl: str = "auto"):
     Returns (y [B,S,D] in x's dtype, h_final [B,D,N] f32)."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown selective_scan impl {impl!r}")
-    use_ref = impl == "ref" or (impl == "auto" and x.device.type == "cpu")
-    if not use_ref:
-        _refuse_grad(x, delta, a, b, c, d, h0)
-    fn = selective_scan_ref if use_ref else _kernel.selective_scan
+    if impl == "ref":
+        return selective_scan_ref(x, delta, a, b, c, d, h0)
+    use_kernel = impl == "kernel" or x.device.type != "cpu"
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, delta, a, b, c, d, h0)):
+        if h0 is None:
+            h0 = torch.zeros((x.shape[0], x.shape[2], a.shape[1]),
+                             dtype=torch.float32, device=x.device)
+        return SelectiveScanFn.apply(x, delta, a, b, c, d, h0, use_kernel)
+    fn = _kernel.selective_scan if use_kernel else selective_scan_ref
     return fn(x, delta, a, b, c, d, h0)
 
 
-__all__ = ["selective_scan", "selective_scan_ref"]
+__all__ = ["SelectiveScanFn", "selective_scan", "selective_scan_bwd_ref",
+           "selective_scan_ref"]

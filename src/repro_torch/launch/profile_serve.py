@@ -31,6 +31,8 @@ import torch
 _FAMILIES = (("paged_attention", ("paged_attention",)),
              ("flash_attention_bwd", ("flash_bwd", "bwd_dot")),
              ("flash_attention", ("flash_attention",)),
+             ("rwkv6_scan_bwd", ("wkv_bwd_", "wkv_sum_parts")),
+             ("selective_scan_bwd", ("ss_bwd_", "ss_sum_parts")),
              ("rwkv6_scan", ("rwkv6_scan",)),
              ("selective_scan", ("selective_scan",)),
              ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),

@@ -15,8 +15,28 @@ batch of ``--batch`` x ``--seq`` tokens (2 x 4096 by default,
 ``train_4k``'s length) memorised for ``--steps`` steps (6), with
 AdamW(lr 1e-3, 2 warmup steps), and prints each step's time, loss and
 gradient norm, the tokens a second and the peak of allocated memory.
-The reference's ``--full`` (a dry-run lowering on a 512-device mesh) has
-no counterpart yet (ROADMAP A7.3).
+Every config trains through the port's kernels, the two recurrences
+through their hand-written backward kernels too (ROADMAP A7.2):
+``--arch rwkv6_1_6b --lr 1e-4`` trains RWKV-6 1.6B at full width and
+depth (at 1e-3 its random weights overflow bf16 within two steps: the
+channel-mix runs on the residual stream without a norm, as in the
+reference), and
+
+    PYTHONPATH=src python -m repro_torch.launch.train --full-width \
+        --device cuda --arch jamba_v0_1_52b --period-layers 2
+
+trains Jamba at its published widths cut in depth to the first two layers
+of its period (Mamba + dense FFN, Mamba + MoE; its 51.6 B parameters do
+not fit one card).  ``examples/train_small.py``'s twin on the card is
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch \
+        jamba_v0_1_52b --steps 200 --batch 8 --seq 64 --lr 1e-3 \
+        --device cuda --expect-loss-drop
+
+(the reduced branch warms up for and logs every ``max(steps // 10, 1)``
+steps, 20 here, as the example does).  The reference's ``--full`` (a
+dry-run lowering on a 512-device mesh) has no counterpart yet (ROADMAP
+A7.3).
 """
 from __future__ import annotations
 
@@ -49,6 +69,15 @@ def frontend_of(cfg) -> Optional[dict]:
     if cfg.frontend.kind == "audio":
         return {"kind": "audio", "embed_dim": cfg.frontend.embed_dim}
     return None
+
+
+def with_period_layers(cfg, layers: int):
+    """``cfg`` cut in depth to the first ``layers`` layers of its period,
+    repeated once: a depth cut, its widths untouched."""
+    if not cfg.period or not 1 <= layers <= len(cfg.period):
+        raise ValueError(f"{cfg.name}: cannot keep {layers} layers of a "
+                         f"period of {len(cfg.period)}")
+    return cfg.replace(period=cfg.period[:layers], repeats=1)
 
 
 def _sync(dev) -> None:
@@ -95,9 +124,13 @@ def step_profile(prof, step_ms: float) -> dict:
 def train_full_width(arch: str = "stablelm_3b", *, steps: int = 6,
                      batch: int = 2, seq: int = 4096, lr: float = 1e-3,
                      warmup: int = 2, seed: int = 0, device="cuda",
-                     profile: bool = False, cfg=None, log=print) -> dict:
-    """Train ``arch``'s published config (or ``cfg``) on one memorised
-    synthetic batch, with remat, through ``make_train_step``'s step.
+                     profile: bool = False, cfg=None,
+                     period_layers: Optional[int] = None,
+                     log=print) -> dict:
+    """Train ``arch``'s published config (or ``cfg``; cut to the first
+    ``period_layers`` layers of its period if given, ``with_period_layers``,
+    the cut named under ``cut``) on one memorised synthetic batch, with
+    remat, through ``make_train_step``'s step.
     Returns the losses, gradient norms and step times (ms,
     device-synchronised; ``optimizer_ms`` the part of each spent in
     ``apply_updates``), tokens a second over the unprofiled steps after
@@ -108,6 +141,12 @@ def train_full_width(arch: str = "stablelm_3b", *, steps: int = 6,
     ``profile`` holds where its device time went (``step_profile``)."""
     dev = resolve_device(device)
     cfg = cfg or get_config(arch)
+    cut = ""
+    if period_layers is not None:
+        cut = (f"depth cut to the first {period_layers} layer(s) of its "
+               f"{len(cfg.period)}-layer period, 1 repeat ({period_layers} "
+               f"of {len(cfg.layer_specs())} layers), widths as published")
+        cfg = with_period_layers(cfg, period_layers)
     pipe = SyntheticTokenPipeline(cfg.vocab_size, batch, seq, seed=seed,
                                   frontend=frontend_of(cfg))
     data = batch_to_torch(next(pipe), dev)
@@ -150,7 +189,7 @@ def train_full_width(arch: str = "stablelm_3b", *, steps: int = 6,
             f"{step_ms[-1]:.1f} ms")
     timed = step_ms[1:steps - 1 if prof is not None else steps] or step_ms
     tokens = batch * seq
-    out = {"arch": cfg.name, "layers": len(cfg.layer_specs()),
+    out = {"arch": cfg.name, "cut": cut, "layers": len(cfg.layer_specs()),
            "params": n_params, "dtype": cfg.dtype, "batch": batch,
            "seq": seq, "steps": steps, "losses": losses,
            "grad_norms": norms, "step_ms": step_ms, "optimizer_ms": opt_ms,
@@ -176,6 +215,12 @@ def main(argv=None):
     ap.add_argument("--full-width", action="store_true",
                     help="train the published config on one memorised "
                          "batch (bf16, remat)")
+    ap.add_argument("--period-layers", type=int, default=None,
+                    help="with --full-width: cut the depth to the first N "
+                         "layers of the config's period, 1 repeat")
+    ap.add_argument("--expect-loss-drop", action="store_true",
+                    help="exit non-zero unless the last loss is below the "
+                         "first (examples/train_small.py's check)")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -196,8 +241,11 @@ def main(argv=None):
               f"(batch={batch}, seq={seq}, bf16, remat) on {args.device}")
         res = train_full_width(args.arch, steps=steps, batch=batch, seq=seq,
                                lr=lr, warmup=FULL_WIDTH["warmup"],
-                               seed=args.seed, device=args.device)
+                               seed=args.seed, device=args.device,
+                               period_layers=args.period_layers)
         peak = res["peak_mem_bytes"]
+        if res["cut"]:
+            print(res["cut"])
         print(f"{res['layers']} layers, {res['params'] / 1e9:.3f} B "
               f"params; step ms {[round(t, 1) for t in res['step_ms']]}; "
               f"{res['tokens_per_s']:.0f} tokens/s; peak "
@@ -211,14 +259,17 @@ def main(argv=None):
                                   frontend=frontend_of(cfg))
     print(f"training {cfg.name} for {steps} steps "
           f"(batch={batch}, seq={seq}) on {args.device}")
+    every = max(steps // 10, 1)
     res = train(cfg, iter(pipe), steps,
-                opt.AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
+                opt.AdamWConfig(lr=lr, warmup_steps=every,
                                 total_steps=steps),
-                seed=args.seed, device=args.device,
+                seed=args.seed, device=args.device, log_every=every,
                 log_fn=lambda i, loss, gn:
                 print(f"  step {i:4d}  loss={loss:.4f}  gnorm={gn:.2f}"))
     print(f"final loss: {res.losses[-1]:.4f} "
           f"(start {res.losses[0]:.4f})")
+    if args.expect_loss_drop and not res.losses[-1] < res.losses[0]:
+        raise SystemExit("training failed to reduce loss")
     if args.checkpoint:
         from repro_torch.training import checkpoint
         n = checkpoint.save(args.checkpoint, res.final_params,

@@ -70,3 +70,17 @@ def test_recurrence_kernels_include_the_shared_headers():
         assert '#include "recurrence.cuh"' in src.read_text()
         assert build.source_digest([src]) == build.source_digest(
             [src], build.COMMON_INCLUDE)
+
+
+def test_scan_backward_kernels_include_the_shared_header():
+    """The two recurrence backward sources take their conversions,
+    reduce-scatter and cp.async copies from the shared recurrence header,
+    so editing it rebuilds them too; each builds into a library of its own
+    name beside its forward's."""
+    for name in ("rwkv6_scan", "selective_scan"):
+        src = KERNELS / name / "csrc" / f"{name}_bwd.cu"
+        assert '#include "recurrence.cuh"' in src.read_text()
+        assert build.source_digest([src]) == build.source_digest(
+            [src], build.COMMON_INCLUDE)
+        fwd = KERNELS / name / "csrc" / f"{name}.cu"
+        assert build.source_digest([src]) != build.source_digest([fwd])

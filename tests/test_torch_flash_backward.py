@@ -2,8 +2,8 @@
 backward kernel's plain version, by formula) against ``jax.vjp`` of the
 JAX package's ``flash_attention_ref``; ``FlashAttentionFn`` (the
 autograd wiring the card's training path runs, here on the plain
-versions) under ``gradcheck`` in float64; and the scan ops, which have no
-backward kernel yet, refusing autograd on their kernel path.  The kernel
+versions) under ``gradcheck`` in float64; and the scan ops' kernel route
+under autograd, which runs inside their Functions.  The kernel
 itself is held to these plain versions on the card
 (``tests/test_torch_kernels_cuda.py``)."""
 import jax
@@ -159,9 +159,11 @@ def _scan_args():
 
 @pytest.mark.parametrize("which", ["rwkv6_scan", "selective_scan"])
 def test_scan_ops_refuse_autograd_on_the_kernel_path(which):
-    """Until their backward kernels exist (ROADMAP A7.2) the scans raise
-    under grad on the kernel path rather than detach the gradient; the
-    plain path stays differentiable."""
+    """Under grad, the scans' kernel route runs inside their autograd
+    Function (``Rwkv6ScanFn`` / ``SelectiveScanFn``) and refuses a CPU
+    tensor there instead of running the plain version; the auto route on
+    the CPU gives the gradients autograd takes through the plain version
+    (``impl="ref"``)."""
     if which == "rwkv6_scan":
         from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan as fn
         args = list(_wkv_args())
@@ -169,12 +171,22 @@ def test_scan_ops_refuse_autograd_on_the_kernel_path(which):
         from repro_torch.kernels.selective_scan.ops import (
             selective_scan as fn)
         args = list(_scan_args())
-    args[0] = args[0].clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="A7.2"):
-        fn(*args, impl="kernel")
-    y, _ = fn(*args, impl="auto")                  # CPU: the plain version
-    y.sum().backward()
-    assert args[0].grad is not None and bool(args[0].grad.abs().sum() > 0)
-    # without grad the kernel route is taken (and refuses a CPU tensor)
+    x0 = args[0].clone().requires_grad_()
+    with pytest.raises(ValueError, match="CUDA") as err:
+        fn(x0, *args[1:], impl="kernel")
+    assert any(f.name == "forward" for f in err.traceback)  # the Function's
+    grads = {}
+    for impl in ("auto", "ref"):
+        x = args[0].clone().requires_grad_()
+        y, _ = fn(x, *args[1:], impl=impl)
+        is_fn = type(y.grad_fn).__name__.endswith("FnBackward")
+        assert is_fn == (impl == "auto"), impl
+        y.square().sum().backward()
+        grads[impl] = x.grad
+    assert bool(grads["auto"].abs().sum() > 0)
+    np.testing.assert_allclose(grads["auto"].numpy(), grads["ref"].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    # without grad the kernel route is taken directly (and refuses a CPU
+    # tensor)
     with torch.no_grad(), pytest.raises(ValueError):
         fn(*args, impl="kernel")

@@ -472,3 +472,183 @@ def test_scan_kernel_rejects_what_it_cannot_take(cuda_device):
     wide = torch.zeros((64, 65), device=cuda_device)
     with pytest.raises(ValueError, match="d_state"):
         skernel.selective_scan(x, dt, wide, bm, cm, dd)
+
+
+# --------------------------------------------------------- scan backwards
+def _hold(grads, refs, names, tol):
+    """Each gradient finite and within ``tol`` of its plain version's own
+    max |value|."""
+    for name, g, r in zip(names, grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        scale = float(r.float().abs().max())
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hd,state,underflow", [
+    (2, 300, 32, 64, False, False),    # the training shape, S cut
+    (2, 100, 8, 64, True, False),      # ragged S, s0 and ds_final
+    (3, 45, 5, 16, True, False),
+    (3, 70, 5, 32, True, False),
+    (3, 70, 5, 128, True, False),
+    (2, 80, 4, 64, True, True),        # w = 0 (w_log = 6) on some channels
+])
+def test_wkv_bwd_kernel_matches_plain_version(cuda_device, b, s, h, hd,
+                                              state, underflow):
+    """dr, dk, dv, dw, du and ds0 of the backward kernel against
+    ``rwkv6_scan_bwd_ref``, within 2e-3 of each gradient's own max
+    |value|, and through ``Rwkv6ScanFn`` by autograd."""
+    from repro_torch.kernels.rwkv6_scan import kernel as wkernel
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd as bkernel
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
+    r, k, v, w, u, s0 = (t.to(cuda_device) for t in
+                         _wkv_inputs(s + hd, b, s, h, hd))
+    if underflow:
+        w[..., ::3] = 0.0
+    if not state:
+        s0.zero_()
+    rng = np.random.default_rng(s + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(
+        np.float32)).to(cuda_device)
+    dsf = torch.from_numpy((rng.standard_normal((b, h, hd, hd)) * 0.1)
+                           .astype(np.float32)).to(cuda_device)
+    if not state:
+        dsf.zero_()
+    args = (r, k, v, w, u, s0, dy, dsf)
+    before = bkernel.launches
+    grads = bkernel.rwkv6_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert bkernel.launches == before + 1
+    refs = rwkv6_scan_bwd_ref(*args)
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    _hold(grads, refs, names, 2e-3)
+    # the autograd route: the forward and the backward kernel
+    xs = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    fwd_before = wkernel.launches
+    y, sf = rwkv6_scan(*xs, impl="kernel")
+    ((y * dy).sum() + (sf * dsf).sum()).backward()
+    torch.cuda.synchronize()
+    assert wkernel.launches == fwd_before + 1
+    assert bkernel.launches == before + 2
+    _hold([x.grad for x in xs], refs, names, 2e-3)
+
+
+@pytest.mark.cuda
+def test_wkv_bwd_kernel_misaligned_inputs(cuda_device):
+    """Contiguous views that start off a 16-byte boundary are staged
+    element by element, to the same gradients."""
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd as bkernel
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
+    b, s, h, hd = 2, 45, 3, 64
+    r, k, v, w, u, s0 = _wkv_inputs(12, b, s, h, hd)
+    dy = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (b, s, h, hd)).astype(np.float32))
+    views = []
+    for t in (r, k, v, w, dy):
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        views.append(view)
+    r, k, v, w, dy = views
+    args = (r, k, v, w, u.to(cuda_device), s0.to(cuda_device), dy,
+            torch.zeros_like(s0.to(cuda_device)))
+    grads = bkernel.rwkv6_scan_bwd(*args)
+    torch.cuda.synchronize()
+    _hold(grads, rwkv6_scan_bwd_ref(*args),
+          ("dr", "dk", "dv", "dw", "du", "ds0"), 2e-3)
+
+
+@pytest.mark.cuda
+def test_wkv_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd as bkernel
+    args = [t.to(cuda_device) for t in _wkv_inputs(2, 1, 8, 2, 64)]
+    dy = torch.zeros_like(args[0])
+    with pytest.raises(ValueError, match="float32"):
+        bkernel.rwkv6_scan_bwd(*[a.bfloat16() if i < 4 else a
+                                 for i, a in enumerate(args)], dy.bfloat16())
+    narrow = [t.to(cuda_device) for t in _wkv_inputs(2, 1, 8, 2, 48)]
+    with pytest.raises(ValueError, match="head_dim"):
+        bkernel.rwkv6_scan_bwd(*narrow, torch.zeros_like(narrow[0]))
+    with pytest.raises(ValueError, match="contiguous"):
+        bkernel.rwkv6_scan_bwd(*args, dy.transpose(1, 2).contiguous()
+                               .transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        bkernel.rwkv6_scan_bwd(*[a.cpu() for a in args], dy.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,dtype,state,wide", [
+    (2, 300, 8192, 16, torch.bfloat16, False, False),  # the training shape
+    (1, 200, 8192, 16, torch.float32, False, False),
+    (1, 100, 2048, 16, torch.float32, False, False),   # ragged S
+    (1, 70, 8200, 16, torch.bfloat16, False, False),   # D off the tile
+    (2, 45, 1000, 1, torch.float32, True, False),
+    (2, 50, 1001, 13, torch.float32, True, False),
+    (2, 40, 1024, 64, torch.float32, True, False),
+    (2, 96, 1024, 16, torch.float32, True, True),      # e^{delta A} = 0
+])
+def test_scan_bwd_kernel_matches_plain_version(cuda_device, b, s, d, n,
+                                               dtype, state, wide):
+    """dx, ddelta, dA, dB, dC, dD and dh0 of the backward kernel against
+    ``selective_scan_bwd_ref``, within 2e-3 (x f32) or 2e-2 (x bf16) of
+    each gradient's own max |value|, and through ``SelectiveScanFn`` by
+    autograd."""
+    from repro_torch.kernels.selective_scan import kernel as skernel
+    from repro_torch.kernels.selective_scan import kernel_bwd as bkernel
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    x, dt, a, bm, cm, dd, h0 = _scan_inputs(s + n, b, s, d, n, dtype,
+                                            cuda_device)
+    rng = np.random.default_rng(s + n + 1)
+    if wide:
+        dt = torch.from_numpy(rng.uniform(0, 1, (b, s, d)).astype(
+            np.float32)).to(cuda_device)
+        a = -torch.from_numpy(np.exp(rng.uniform(
+            np.log(0.01), np.log(1000.0), (d, n))).astype(np.float32)).to(
+            cuda_device)
+    dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    dhf = torch.from_numpy((rng.standard_normal((b, d, n)) * 0.1).astype(
+        np.float32)).to(cuda_device)
+    if not state:
+        h0.zero_()
+        dhf.zero_()
+    args = (x, dt, a, bm, cm, dd, h0, dy, dhf)
+    before = bkernel.launches
+    grads = bkernel.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert bkernel.launches == before + 1
+    refs = selective_scan_bwd_ref(*args)
+    names = ("dx", "ddelta", "da", "db", "dc", "dd", "dh0")
+    _hold(grads, refs, names, tol)
+    xs = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, dd, h0)]
+    fwd_before = skernel.launches
+    y, hf = selective_scan(*xs, impl="kernel")
+    ((y.float() * dy.float()).sum() + (hf * dhf).sum()).backward()
+    torch.cuda.synchronize()
+    assert skernel.launches == fwd_before + 1
+    assert bkernel.launches == before + 2
+    # autograd's cotangent of y is dy rounded to y's dtype: the same dy
+    _hold([t.grad for t in xs], refs, names, tol)
+
+
+@pytest.mark.cuda
+def test_scan_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.selective_scan import kernel_bwd as bkernel
+    args = _scan_inputs(6, 1, 8, 64, 16, torch.float32, cuda_device)
+    dy = torch.zeros_like(args[0])
+    with pytest.raises(ValueError, match="dy must be"):
+        bkernel.selective_scan_bwd(*args, dy.bfloat16())
+    with pytest.raises(ValueError, match="float32"):
+        bkernel.selective_scan_bwd(args[0], args[1].bfloat16(), *args[2:],
+                                   dy)
+    wide = torch.zeros((64, 65), device=cuda_device)
+    with pytest.raises(ValueError, match="d_state"):
+        bkernel.selective_scan_bwd(args[0], args[1], wide, *args[3:], dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        bkernel.selective_scan_bwd(*[t.cpu() for t in args], dy.cpu())

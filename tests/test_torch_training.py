@@ -264,8 +264,12 @@ def test_state_plan_mirrors_the_param_plan():
         assert m.dtype == v.dtype == "float32"
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "mixtral_8x7b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "mixtral_8x7b",
+                                  "jamba_v0_1_52b", "rwkv6_1_6b"])
 def test_train_steps_track_jax(arch):
+    """Five steps of ``make_train_step`` (for Jamba and RWKV-6 through the
+    scans' Functions and their formula backward, as ``launch.train``'s
+    ``train_small`` twin runs them) track JAX's from bridged weights."""
     jcfg, tcfg, jparams, np_params, batch = _setup(arch, seed=2)
     jo = jax_opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=5)
     to = t_opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=5)
@@ -322,6 +326,25 @@ def test_launch_train_cli(tmp_path, capsys):
     assert len(res.losses) == 3
     with pytest.raises(SystemExit, match="A7.3"):
         t_launch.main(["--full"])
+
+
+def test_period_layers_cut_keeps_widths_and_loss_check_exits():
+    """``with_period_layers`` keeps the first layers of the period at the
+    published widths (Jamba: Mamba + dense FFN, Mamba + MoE), and
+    ``--expect-loss-drop`` exits non-zero when the last loss is not below
+    the first (one step: the two are the same)."""
+    full = t_get_config("jamba_v0_1_52b")
+    cut = t_launch.with_period_layers(full, 2)
+    assert [(ls.mixer, ls.ffn) for ls in cut.layer_specs()] == [
+        ("mamba", "dense"), ("mamba", "moe")]
+    assert (cut.d_model, cut.moe, cut.mamba) == (full.d_model, full.moe,
+                                                 full.mamba)
+    for bad in (0, len(full.period) + 1):
+        with pytest.raises(ValueError, match="cannot keep"):
+            t_launch.with_period_layers(full, bad)
+    with pytest.raises(SystemExit, match="failed to reduce loss"):
+        t_launch.main(["--device", "cpu", "--steps", "1", "--batch", "2",
+                       "--seq", "16", "--expect-loss-drop"])
 
 
 # ---- twins of tests/test_training.py ---------------------------------------
