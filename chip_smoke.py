@@ -13,7 +13,8 @@ on its own line:
    three backwards), and count each library's tensor-core instructions
    (``HMMA`` from mma.sync, ``HGMMA`` from wgmma, in ``cuobjdump
    --dump-sass``): a tensor-core kernel's library with none fails (the
-   scans' CUDA-core backwards are counted, not required to have any);
+   scans' CUDA-core backwards are counted, not required to have any), and
+   the flash backward's library must hold wgmma (``HGMMA``) ones;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (paged attention: the runtime's lane-major
    call first, then the same rows row-major, as the JAX runtime calls,
@@ -33,10 +34,13 @@ on its own line:
    bf16 and f32 x, a ragged S, decode, two chained halves, D off the
    channel tile, N = 1, 13 and 64, and delta * A past the exponential's
    flush to 0; the flash backward: the training shape S = T = 4096, H =
-   KV = 32, hd 80 in bf16, f32 at hd 64, GQA with a window and softcap at
-   hd 128, non-causal T != S and MLA's hd 192, against its plain version
-   on the forward kernel's output and log-sum-exp, each gradient within
-   2e-2 (bf16) or 2e-3 (f32) of its max |value|; the WKV backward at
+   KV = 32, hd 80 in bf16 (two calls must give the same bits), OLMo 2's
+   at hd 128, f32 at hd 64, GQA with a window and softcap at hd 128,
+   non-causal T != S and MLA's hd 192, against its plain version on the
+   forward kernel's output and log-sum-exp, each gradient within 2e-2
+   (bf16) or 2e-3 (f32) of its max |value|, each case printed with the
+   design the source runs for it (wgmma, mma or cuda_cores); the WKV
+   backward at
    RWKV-6's training shape B 2, S 4096, H 32, hd 64, then a ragged S with
    an initial state and a cotangent on the final state, hd 16, 32 and 128
    at ragged B and H, and w past f32 underflow; the selective-scan
@@ -197,9 +201,10 @@ def read_counts() -> dict:
 
 
 # kernels redesigned for the tensor cores: their libraries must hold
-# tensor-core instructions
+# tensor-core instructions; those redesigned for wgmma must hold wgmma's
 TENSOR_CORE_KERNELS = ("paged_attention_mixed", "flash_attention",
                        "flash_attention_bwd")
+WGMMA_KERNELS = ("flash_attention_bwd",)
 
 
 def tensor_core_count(so: Path) -> dict:
@@ -234,6 +239,9 @@ def build_kernels() -> dict:
             log(f"      ptxas: {ln}")
         if name in TENSOR_CORE_KERNELS and not sum(mma.values()):
             raise AssertionError(f"{name}: no tensor-core instruction in "
+                                 f"{b.path.name}")
+        if name in WGMMA_KERNELS and not mma["HGMMA"]:
+            raise AssertionError(f"{name}: no wgmma (HGMMA) instruction in "
                                  f"{b.path.name}")
     log(f"[2/8] all kernels built in {time.perf_counter() - t0:.1f}s")
     return out
@@ -627,7 +635,9 @@ def check_flash_bwd(torch) -> list:
     o and lse against ``flash_attention_bwd_ref`` on the plain version's
     (same q, k, v and random dO), each gradient within ``tol`` of its own
     max |value|; timed beside the plain version and SDPA's backward (the
-    port never calls SDPA)."""
+    port never calls SDPA).  Each case prints the design the source runs
+    for it (``kernel_bwd.design``); at the training shape a second call
+    must give the same bits."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import kernel_bwd as fab_kernel
@@ -639,6 +649,8 @@ def check_flash_bwd(torch) -> list:
     cases = [
         ("stablelm train bf16 S=T=4096", 1, 4096, 4096, 32, 32, 80, True, 0,
          None, torch.bfloat16, 2e-2),
+        ("olmo2 train bf16 S=T=4096 hd=128", 1, 4096, 4096, 32, 32, 128,
+         True, 0, None, torch.bfloat16, 2e-2),
         ("f32 H=KV=8 hd=64 S=T=1024", 1, 1024, 1024, 8, 8, 64, True, 0, None,
          torch.float32, 2e-3),
         ("gqa H=32 KV=8 hd=128 window 256 softcap 50 bf16", 1, 1024, 1024,
@@ -668,8 +680,18 @@ def check_flash_bwd(torch) -> list:
                                      atol=tol)) and bool(torch.equal(
                                          torch.isinf(lse), ~live))
         args = (q, k, v, o, lse, do)
+        design = fab_kernel.design(hd, dt, fab_kernel.aligned(q, k, v, do))
         grads = fab_kernel.flash_attention_bwd(*args, **kw)
         torch.cuda.synchronize()
+        same_bits = None
+        if not results:
+            # the training shape: no atomics, so a second call repeats
+            again = fab_kernel.flash_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            same_bits = all(bool(torch.equal(g, g2))
+                            for g, g2 in zip(grads, again))
+            ok = ok and same_bits
+            del again
         refs = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
         scales = {}
         for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
@@ -707,7 +729,8 @@ def check_flash_bwd(torch) -> list:
         res = {"case": name, "shape": {"B": b, "S": s, "T": t, "H": h,
                                        "KV": kv, "hd": hd},
                "causal": causal, "window": window, "softcap": cap,
-               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "dtype": str(dt).replace("torch.", ""), "design": design,
+               "same_bits": same_bits, "max_abs_err": err,
                "errs": errs, "grad_max_abs": scales, "tol": tol,
                "ok": ok, "ms": ms,
                "eager_ms": eager_ms, "plain_ms": plain_ms,
@@ -715,8 +738,9 @@ def check_flash_bwd(torch) -> list:
                "bound_by": bound_by, "bytes": nbytes, "ops": ops}
         results.append(res)
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (softcap)"
-        log(f"[3/8] flash_attention_bwd {name}: B={b} S={s} T={t} H={h} "
-            f"KV={kv} hd={hd}: forward o {errs['o']:.3g}, lse "
+        bits = "" if same_bits is None else f", same bits twice {same_bits}"
+        log(f"[3/8] flash_attention_bwd {name} ({design}{bits}): B={b} S={s} "
+            f"T={t} H={h} KV={kv} hd={hd}: forward o {errs['o']:.3g}, lse "
             f"{errs['lse']:.3g} (tol {tol}); max_abs_err dq {errs['dq']:.3g} "
             f"dk {errs['dk']:.3g} dv {errs['dv']:.3g} (tol {tol} x max|grad| "
             f"{scales['dq']:.3g} {scales['dk']:.3g} {scales['dv']:.3g}); "
@@ -726,7 +750,8 @@ def check_flash_bwd(torch) -> list:
         if not ok:
             raise AssertionError(f"flash forward (with lse) or backward "
                                  f"kernel disagrees with its plain version "
-                                 f"on {name}: {errs}, max|grad| {scales}")
+                                 f"on {name}: {errs}, max|grad| {scales}, "
+                                 f"same bits twice {same_bits}")
         del q, k, v, o, lse, do, args, mask
         torch.cuda.empty_cache()
     return results

@@ -16,7 +16,8 @@
 // tanh-softcapped to c * tanh(s / c) when softcap > 0 (its derivative
 // 1 - tanh^2); masked entries contribute exactly zero.
 //
-// Three launches, none with atomics, so the result is deterministic:
+// Three launches, none with atomics, so the result is deterministic (the
+// same bits on every run):
 //   1. D[b,h,i] = sum_d dO * O, one warp a row;
 //   2. dK/dV: one block per (tile of keys, kv head, batch row).  It walks
 //      the G query heads of its kv head and the query tiles the mask lets
@@ -25,34 +26,51 @@
 //      dK += dS^T Q over them in registers (the GQA sum needs no atomics);
 //   3. dQ: one block per (tile of query rows, q head, batch row), walking
 //      the key tiles its rows can reach, dQ += dS K.
-// Two designs, by dtype and width:
-//   * bf16 up to head_dim 128 (the training path): the five products run
-//     on the tensor cores (mma.sync, common/csrc/tc_attention.cuh), 4
-//     warps a block, each owning 16 rows of the block's 64-row tile; the
-//     f32 score fragments become P and dS in registers and feed the
-//     gradient products as A operands (section "bf16, tensor cores").
-//   * f32 (exact products, which the float32 parity runs need) and bf16
-//     above head_dim 128 (MLA's 192): the CUDA cores in f32, bf16 inputs
-//     widened when staged.  Each block stages its tiles in shared memory
-//     as f32 with a row stride of 16 * kC + 1 (odd, so the 16 rows a warp
-//     reads fall on 16 banks; the pad columns are zeros), and each of its
-//     256 threads owns a kR x kR block of the score tile and kR rows of
-//     the accumulators.  Tiles are 64 rows (kR = 4) up to head_dim 128 and
-//     32 rows (kR = 2) above, to fit the four staged tiles in 227 KB.
 //
 // What bounds it on an H100: five products of 2 * hd operations per kept
-// (query, key) pair and head, 2.5 times the forward's (the dQ pass
-// recomputes two of them, so the kernel does 3.5 times), against the
-// bytes of q, k, v, o, dO, lse and the three gradients.  At the training
-// shape (S = T = 4096, H = KV = 32, hd 80, causal) the operations bind by
-// far: ~0.22 ms a batch row at bf16's tensor-core peak.  Neither design
-// pipelines its loads (cp.async or TMA) nor uses wgmma; both are later
-// work.
+// (query, key) pair and head, 10 * hd in all (2.5 times the forward's),
+// against the bytes of q, k, v, o, dO, lse and the three gradients, read
+// or written once.  At the training shape (S = T = 4096, H = KV = 32,
+// hd 80, causal) the operations bind by far: ~0.22 ms a batch row at
+// bf16's tensor-core peak.  The dQ pass recomputes S and dP, so this
+// two-pass design does 7 products, 14 * hd: its own ceiling is ~0.30 ms.
+// What the design does about it: the products run on wgmma, fed from
+// shared memory that TMA fills a few tiles ahead of them (no thread spends
+// time on staging), the probabilities and dS stay in registers as the
+// products' A operands, and masked tiles are skipped, not computed.
+//
+// Three designs, chosen by shape (kernel_bwd.py::design mirrors the
+// choice in ``dispatch``; each a hand-written kernel, none a fallback):
+//   * "wgmma": bf16 with hd a multiple of 8 up to 192 and 16-byte-aligned
+//     q, k, v, dO -- what a TMA tensor map takes (its strides must be
+//     multiples of 16 bytes).  Warp-specialised blocks: a producer keeps a
+//     ring of Q/dO (or K/V) tiles in flight by TMA behind mbarriers, two
+//     consumer warpgroups run the products on wgmma with P^T and dS^T fed
+//     from their accumulators as register operands (in the dK/dV pass one
+//     forms P^T and dV, the other dS^T and dK, P^T passing between them
+//     through shared memory), the mask is tested only on tiles that
+//     straddle its edges, and the dQ pass starts its heaviest query tiles
+//     first (section "bf16, wgmma + TMA"; the Hopper pieces are in
+//     common/csrc/hopper.cuh).  Training's widths (hd 64, 80, 96, 128) and
+//     MLA's 192 take it.
+//   * "mma": the other bf16 widths up to 128 (hd 50, say, whose 100-byte
+//     rows a TMA map cannot stride, or an unaligned view): mma.sync on 64
+//     x 64 tiles staged synchronously (section "bf16, tensor cores").
+//   * "cuda_cores": f32 at every width, whose exact products the float32
+//     lockstep runs of training need, and bf16 above 192 or unaligned above
+//     128: the CUDA cores in f32, bf16 inputs widened when staged.  Each
+//     block stages its tiles in shared memory as f32 with a row stride of
+//     16 * kC + 1 (odd, so the 16 rows a warp reads fall on 16 banks; the
+//     pad columns are zeros), and each of its 256 threads owns a kR x kR
+//     block of the score tile and kR rows of the accumulators.  Tiles are
+//     64 rows (kR = 4) up to head_dim 128 and 32 rows (kR = 2) above, to
+//     fit the four staged tiles in 227 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tc_attention.cuh"
 
 namespace {
@@ -414,7 +432,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // ------------------------------------------------------ bf16, tensor cores
-// The same two passes for bf16 inputs up to head_dim 128, on mma.sync
+// The same two passes for the bf16 inputs up to head_dim 128 that a TMA
+// map cannot take (hd not a multiple of 8, or unaligned), on mma.sync
 // (common/csrc/tc_attention.cuh's fragments, as the forward): 4 warps a
 // block, each owning 16 rows of its 64-row tile (keys in the dK/dV pass,
 // query rows in the dQ pass); tiles staged as bf16 with a row stride of
@@ -757,6 +776,656 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ bf16, wgmma + TMA
+// The two passes for bf16 with hd a multiple of 8 up to 192 and 16-byte
+// aligned inputs (what a TMA map takes), warp-specialised: 3 warpgroups a
+// block, one block an SM.  Warpgroup 2 produces: one of its threads loads
+// the block's resident tile pair once, then keeps a ring of 2 to 4 stages
+// (Rings) of the streamed pair in flight by TMA, each behind a "full"
+// mbarrier that the consumers wait on and an "empty" one they release.
+// Warpgroups 0 and 1 consume on wgmma, each holding one f32 accumulator:
+//   dK/dV, one block per 64 keys: the resident pair is the keys' K and V,
+//     the streamed one a 64-row tile of Q and dO with the rows' lse and D
+//     (cp.async copies by the producer's first warp, which arrive on the
+//     stage's barrier as they land).  Keys are the M dimension.
+//     Warpgroup 0 forms S^T = K Q^T, P^T and dV += P^T dO; it hands
+//     P^T dcap (bf16, each thread its own fragment) to warpgroup 1
+//     through shared memory behind a "p" mbarrier.  Warpgroup 1 forms
+//     dP^T = V dO^T, dS^T = P^T dcap (dP^T - D) and dK += dS^T Q.  S^T and
+//     dP^T read both operands K-major from shared memory; P^T and dS^T are
+//     register A operands of the gradient products, which read dO and Q
+//     MN-major: 4 products of 2 hd operations per kept pair.
+//   dQ, one block per 128 query rows (64 a consumer): the resident pair is
+//     the rows' Q and dO, the streamed one a 64-key tile of K and V; each
+//     consumer forms S = Q K^T, dP = dO V^T, dS and dQ += dS K (K
+//     MN-major).  Its query tiles launch heaviest first.
+// Splitting dK/dV by role keeps each consumer within 168 registers with
+// no spill up to hd 128: ptxas compiles the block's 384 threads at 168 a
+// thread whatever setmaxnreg asks (so the kernel does not use it), and
+// one warpgroup holding both 64 x hd accumulators and the two score tiles
+// spills from hd 80 on.  A consumer skips a tile that the mask
+// hides from all its rows (it still waits for and releases the stage) and
+// tests the mask element by element only on tiles that straddle the
+// causal diagonal, the window's edge or the last key.  Rows past S load as
+// zeros: in the dQ pass they get lse = +inf (P = 0); in the dK/dV pass
+// lse = D = 0, so P = 1 meets a zero dO row and dS = 1 (0 - 0) = 0 meets
+// a zero Q row, and they add exactly 0.  No atomics:
+// every sum runs in one fixed order, so the bits repeat.
+namespace wg {
+
+constexpr int kRows = 64;                  // rows of a box and of a consumer
+constexpr int kBox = kRows * 16;           // bf16 elements of a 64-row box
+constexpr int kConsumers = 2;              // warpgroups 0, 1; then the producer
+constexpr int kThreads = 128 * (kConsumers + 1);
+using tc::kLog2e;
+
+struct Params {
+  const float* lse;
+  const float* dsum;
+  __nv_bfloat16* out0;  // dk (dK/dV pass) or dq
+  __nv_bfloat16* out1;  // dv
+  int seq_q, seq_k, heads, kv_heads, hd, causal, window;
+  float scale, softcap;
+  __device__ __forceinline__ bool keep(int i, int j) const {
+    return Mask{seq_k, seq_k - seq_q, causal, window}.keep(i, j);
+  }
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Zero boxes [live, chunks) of ``n`` consecutive tiles of ``chunks`` boxes
+// of kBox elements: the columns past the last 16-column box TMA writes.
+__device__ __forceinline__ void zero_dead(__nv_bfloat16* tiles, int n,
+                                          int live, int chunks) {
+  for (int t = 0; t < n; ++t) {
+    uint4* p = reinterpret_cast<uint4*>(tiles + (t * chunks + live) * kBox);
+    for (int i = threadIdx.x; i < (chunks - live) * kBox / 8; i += kThreads)
+      p[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The live 16-column boxes of one head's rows [row0, row0 + 64 * halves)
+// into ``dst`` (a tile of 64 * halves rows), completing on ``bar``.
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int live,
+                                          int halves, int head, int row0,
+                                          int b) {
+  for (int c = 0; c < live; ++c)
+    for (int r = 0; r < halves; ++r)
+      hopper::tma_load_4d(dst + (c * halves + r) * kBox, map, bar, 16 * c,
+                          head, row0 + kRows * r, b);
+}
+
+// acc = A B^T over kD columns: A 64 rows of a tile whose boxes are
+// ``a_box`` elements apart, B a 64-row tile.
+template <int kD>
+__device__ __forceinline__ void score(float (&acc)[32],
+                                      const __nv_bfloat16* a, int a_box,
+                                      const __nv_bfloat16* b) {
+  const uint32_t da = hopper::desc_lo(a, 16), db = hopper::desc_lo(b, 16);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    hopper::mma_ss_n64(acc, da + kk * a_box / 8, db + kk * kBox / 8, kk > 0);
+}
+
+// acc += X M: X the 64 x 64 operand as A fragments (4 k-steps), M a
+// 64-row tile ([64 rows][kD]) read MN-major.
+template <int kD>
+__device__ __forceinline__ void grad(float (&acc)[kD / 2],
+                                     const uint32_t (&x)[4][4],
+                                     const __nv_bfloat16* m) {
+  const uint32_t dm = hopper::desc_lo(m, kBox * 2);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::Rs<kD>::mma(acc, x[kk], dm + kk * 32);
+}
+
+// Elements 2r, 2r + 1 of k-step kk of a 64 x 64 accumulator, in bf16: its
+// A fragment for the next product.
+__device__ __forceinline__ uint32_t frag(const float (&x)[32], int kk,
+                                         int r) {
+  return tc::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Accumulator element n of a thread (lane = 4 g + q of warp w): row
+// 16 w + g + 8 (n % 4 / 2), column 8 (n / 4) + 2 q + n % 2 of the tile.
+__device__ __forceinline__ int acc_row(int n) {
+  return (threadIdx.x % 128) / 32 * 16 + (threadIdx.x % 32) / 4 +
+         8 * ((n & 3) >> 1);
+}
+__device__ __forceinline__ int acc_col(int n) {
+  return 8 * (n >> 2) + 2 * (threadIdx.x % 4) + (n & 1);
+}
+
+// P of one score (s = q.k), from the query's lse * log2(e); with softcap
+// also its derivative dcap = 1 - tanh^2.
+template <bool kCap>
+__device__ __forceinline__ float prob(float s, float lse2, const Params& p,
+                                      float& dcap) {
+  if (kCap) {
+    const float t = tanhf(s * p.scale / p.softcap);
+    dcap = 1.f - t * t;
+    return tc::exp2_approx(t * p.softcap * kLog2e - lse2);
+  }
+  dcap = 1.f;
+  return tc::exp2_approx(fmaf(s, p.scale * kLog2e, -lse2));
+}
+
+// Stages of the rings: as many as fit 227 KB beside the resident tiles, up
+// to 4 (a refill waits for the consumers' release, then for TMA).
+template <int kD>
+struct Rings {
+  static constexpr int kv = kD <= 128 ? 4 : 3;  // the dK/dV pass's stages
+  static constexpr int q = kD <= 128 ? 4 : 2;   // the dQ pass's
+};
+
+template <int kD>
+size_t dkdv_smem() {
+  const size_t stage = size_t(2) * (kD / 16) * kBox * 2 + 9216;
+  return 1024 + size_t(2) * (kD / 16) * kBox * 2 + Rings<kD>::kv * stage +
+         64;
+}
+
+template <int kD>
+size_t dq_smem() {
+  const size_t tiles = size_t(2) * (kD / 16) * kBox * 2;
+  return 1024 + 2 * tiles + Rings<kD>::q * tiles + 64;
+}
+
+// What a dK/dV consumer needs of the block.
+struct KvBlock {
+  const __nv_bfloat16* k;   // resident K, V: kD / 16 boxes of 64 keys
+  const __nv_bfloat16* v;
+  uint8_t* ring;            // stages: Q, dO, lse2 | D, P^T dcap
+  int stage_bytes;
+  uint64_t *full, *empty, *pfull, *res;
+  int k0, i_begin, n_tiles, total, b, kvh;
+};
+
+// Stage ``stage``'s tiles: Q, dO (kD / 16 boxes each), then 64 lse * log2e
+// and 64 D, then the P^T dcap fragments (16 words a consumer thread).
+template <int kD>
+struct Stage {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* dout;
+  const float* stats;
+  uint4* px;
+  __device__ __forceinline__ Stage(const KvBlock& kb, int stage) {
+    uint8_t* base = kb.ring + stage * kb.stage_bytes;
+    q = reinterpret_cast<const __nv_bfloat16*>(base);
+    dout = q + (kD / 16) * kBox;
+    stats = reinterpret_cast<const float*>(dout + (kD / 16) * kBox);
+    px = reinterpret_cast<uint4*>(base + 2 * (kD / 16) * kBox * 2 + 1024);
+  }
+};
+
+// Whether the mask hides the block's 64 keys from every row of the query
+// tile at i0 (skip), or from some of its pairs (masked).
+__device__ __forceinline__ void tile_mask(const Params& p, int k0, int i0,
+                                          bool& skip, bool& masked) {
+  const int shift = p.seq_k - p.seq_q;
+  const int i_hi = min(i0 + kRows, p.seq_q) - 1;
+  skip = (p.causal && k0 > i_hi + shift) ||
+         (p.window > 0 && k0 + kRows - 1 <= i0 + shift - p.window);
+  masked = k0 + kRows > p.seq_k || (p.causal && k0 + kRows - 1 > i0 + shift) ||
+           (p.window > 0 && k0 <= i_hi + shift - p.window);
+}
+
+// A consumer's 64 x kD accumulator times ``scale`` into rows
+// [row0, row0 + 64) of ``out`` (row ``r`` at base + r * stride), rows
+// below ``rows`` and columns below hd only; two columns a 4-byte store.
+template <int kD>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* out,
+                                           const float (&acc)[kD / 2],
+                                           float scale, size_t base,
+                                           size_t stride, int row0, int rows,
+                                           int hd) {
+#pragma unroll
+  for (int n = 0; n < kD / 2; n += 2) {
+    const int r = row0 + acc_row(n), d = acc_col(n);
+    if (r < rows && d < hd)
+      *reinterpret_cast<uint32_t*>(out + base + size_t(r) * stride + d) =
+          tc::pack_bf16(acc[n] * scale, acc[n + 1] * scale);
+  }
+}
+
+// Warpgroup 0 of the dK/dV pass: S^T, P^T and dV; P^T dcap to warpgroup 1.
+template <int kD, bool kCap>
+__device__ __forceinline__ void dv_consumer(const Params& p,
+                                            const KvBlock& kb) {
+  float dv[kD / 2];
+#pragma unroll
+  for (int n = 0; n < kD / 2; ++n) dv[n] = 0.f;
+  hopper::mbar_wait(kb.res, 0);
+  int stage = 0, phase = 0;
+  for (int it = 0; it < kb.total; ++it) {
+    const int i0 = kb.i_begin + (it % kb.n_tiles) * kRows;
+    hopper::mbar_wait(&kb.full[stage], phase);
+    const Stage<kD> st(kb, stage);
+    bool skip, masked;
+    tile_mask(p, kb.k0, i0, skip, masked);
+    if (!skip) {
+      float s[32];
+      hopper::wgmma_fence();
+      score<kD>(s, kb.k, kBox, st.q);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      uint32_t xf[4][4];  // P^T dcap, for warpgroup 1 (with softcap)
+#pragma unroll
+      for (int n = 0; n < 32; n += 2) {
+        float dc0, dc1;
+        float p0 = prob<kCap>(s[n], st.stats[acc_col(n)] * kLog2e, p, dc0);
+        float p1 =
+            prob<kCap>(s[n + 1], st.stats[acc_col(n + 1)] * kLog2e, p, dc1);
+        if (masked) {
+          const int key = kb.k0 + acc_row(n);
+          if (!p.keep(i0 + acc_col(n), key)) p0 = 0.f;
+          if (!p.keep(i0 + acc_col(n + 1), key)) p1 = 0.f;
+        }
+        s[n] = p0;
+        s[n + 1] = p1;
+        if (kCap)
+          xf[n >> 3][(n & 7) >> 1] = tc::pack_bf16(p0 * dc0, p1 * dc1);
+      }
+      uint32_t pf[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pf[kk][r] = frag(s, kk, r);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t(&w)[4] = kCap ? xf[kk] : pf[kk];
+        st.px[kk * 128 + threadIdx.x % 128] =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      hopper::mbar_arrive(&kb.pfull[stage]);
+      hopper::wgmma_fence();
+      grad<kD>(dv, pf, st.dout);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv);
+    } else {
+      hopper::mbar_arrive(&kb.pfull[stage]);
+    }
+    hopper::mbar_arrive(&kb.empty[stage]);
+    if (++stage == Rings<kD>::kv) { stage = 0; phase ^= 1; }
+  }
+  const size_t kv_row = size_t(p.kv_heads) * p.hd;
+  store_tile<kD>(p.out1, dv, 1.f,
+                 size_t(kb.b) * p.seq_k * kv_row + size_t(kb.kvh) * p.hd,
+                 kv_row, kb.k0, p.seq_k, p.hd);
+}
+
+// Warpgroup 1 of the dK/dV pass: dP^T, dS^T from warpgroup 0's P^T dcap,
+// and dK.
+template <int kD>
+__device__ __forceinline__ void dk_consumer(const Params& p,
+                                            const KvBlock& kb) {
+  float dk[kD / 2];
+#pragma unroll
+  for (int n = 0; n < kD / 2; ++n) dk[n] = 0.f;
+  hopper::mbar_wait(kb.res, 0);
+  int stage = 0, phase = 0;
+  for (int it = 0; it < kb.total; ++it) {
+    const int i0 = kb.i_begin + (it % kb.n_tiles) * kRows;
+    hopper::mbar_wait(&kb.full[stage], phase);
+    const Stage<kD> st(kb, stage);
+    bool skip, masked;
+    tile_mask(p, kb.k0, i0, skip, masked);
+    if (!skip) {
+      float dp[32];
+      hopper::wgmma_fence();
+      score<kD>(dp, kb.v, kBox, st.dout);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      hopper::mbar_wait(&kb.pfull[stage], phase);
+      uint32_t dsf[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 x4 = st.px[kk * 128 + threadIdx.x % 128];
+        const uint32_t x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 8 * kk + 2 * r;
+          const float x0 = __uint_as_float(x[r] << 16);
+          const float x1 = __uint_as_float(x[r] & 0xffff0000u);
+          dsf[kk][r] = tc::pack_bf16(
+              x0 * (dp[n] - st.stats[kRows + acc_col(n)]),
+              x1 * (dp[n + 1] - st.stats[kRows + acc_col(n + 1)]));
+        }
+      }
+      hopper::wgmma_fence();
+      grad<kD>(dk, dsf, st.q);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk);
+    }
+    hopper::mbar_arrive(&kb.empty[stage]);
+    if (++stage == Rings<kD>::kv) { stage = 0; phase ^= 1; }
+  }
+  const size_t kv_row = size_t(p.kv_heads) * p.hd;
+  store_tile<kD>(p.out0, dk, p.scale,
+                 size_t(kb.b) * p.seq_k * kv_row + size_t(kb.kvh) * p.hd,
+                 kv_row, kb.k0, p.seq_k, p.hd);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q,
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v,
+    const __grid_constant__ CUtensorMap map_do, const Params p) {
+  constexpr int kChunks = kD / 16;
+  constexpr int kStages = Rings<kD>::kv;
+  constexpr int kStageBytes = 2 * kChunks * kBox * 2 + 9216;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* v_s = k_s + kChunks * kBox;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(v_s + kChunks * kBox);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* pfull = empty + kStages;
+  uint64_t* res = pfull + kStages;
+
+  const int kvh = blockIdx.x % p.kv_heads, b = blockIdx.x / p.kv_heads;
+  const int k0 = blockIdx.y * kRows;
+  const int group = p.heads / p.kv_heads, shift = p.seq_k - p.seq_q;
+  const int live = (p.hd + 15) / 16;
+  // the query tiles the mask lets see a key of this block
+  int i_begin = 0, i_end = p.seq_q;
+  if (p.causal) i_begin = max(0, k0 - shift);
+  if (p.window > 0)
+    i_end = min(p.seq_q, min(k0 + kRows, p.seq_k) - 1 + p.window - shift);
+  i_begin = (i_begin / kRows) * kRows;
+  const int n_tiles =
+      i_end > i_begin ? (i_end - i_begin + kRows - 1) / kRows : 0;
+
+  if (live < kChunks) {
+    zero_dead(k_s, 2, live, kChunks);  // K and V
+    for (int s = 0; s < kStages; ++s)  // Q and dO
+      zero_dead(reinterpret_cast<__nv_bfloat16*>(ring + s * kStageBytes), 2,
+                live, kChunks);
+    hopper::fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 128 * kConsumers);
+      hopper::mbar_init(&pfull[s], 128);
+    }
+    hopper::mbar_init(res, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const KvBlock kb{k_s,   v_s,     ring,   kStageBytes, full,
+                   empty, pfull,   res,    k0,          i_begin,
+                   n_tiles, group * n_tiles, b, kvh};
+  // the warpgroup's index, warp-uniform as the compiler can see
+  const int wg_idx = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+  if (wg_idx == kConsumers) {
+    // producer: its first warp loads the stages' lse and D rows, its first
+    // thread issues the TMA copies
+    if (threadIdx.x >= 128 * kConsumers + 32) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      hopper::tma_prefetch(&map_q);
+      hopper::tma_prefetch(&map_do);
+      hopper::mbar_arrive_expect_tx(res, 2 * live * kBox * 2);
+      load_rows(k_s, &map_k, res, live, 1, kvh, k0, b);
+      load_rows(v_s, &map_v, res, live, 1, kvh, k0, b);
+    }
+    int stage = 0, phase = 0;
+    for (int it = 0; it < kb.total; ++it) {
+      const int h = kvh * group + it / n_tiles;
+      const int i0 = i_begin + (it % n_tiles) * kRows;
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      const Stage<kD> st(kb, stage);
+      if (lane == 0) {  // the tiles first: their copies overlap the loads
+        __nv_bfloat16* q_t = const_cast<__nv_bfloat16*>(st.q);
+        hopper::mbar_expect_tx(&full[stage], 2 * live * kBox * 2);
+        load_rows(q_t, &map_q, &full[stage], live, 1, h, i0, b);
+        load_rows(q_t + kChunks * kBox, &map_do, &full[stage], live, 1, h,
+                  i0, b);
+      }
+      // lse and D of the tile's rows, zeros past S, copied asynchronously
+      float* stats = const_cast<float*>(st.stats);
+      const size_t row = (size_t(b) * p.heads + h) * p.seq_q;
+      for (int r = lane; r < kRows; r += 32) {
+        const bool in = i0 + r < p.seq_q;
+        const size_t o = row + (in ? i0 + r : 0);
+        tc::cp_async4(stats + r, p.lse + o, in);
+        tc::cp_async4(stats + kRows + r, p.dsum + o, in);
+      }
+      hopper::mbar_arrive_cp_async(&full[stage]);
+      if (++stage == kStages) { stage = 0; phase ^= 1; }
+    }
+  } else if (wg_idx == 0) {
+    if (p.softcap > 0.f) dv_consumer<kD, true>(p, kb);
+    else dv_consumer<kD, false>(p, kb);
+  } else {
+    dk_consumer<kD>(p, kb);
+  }
+}
+
+// What a dQ consumer needs of the block.
+struct QBlock {
+  const __nv_bfloat16* q;   // resident Q, dO: kD / 16 boxes of 128 rows
+  const __nv_bfloat16* dout;
+  uint8_t* ring;            // stages: K, V
+  int stage_bytes;
+  uint64_t *full, *empty, *res;
+  int i0, k_begin, total, b, h;
+};
+
+// A consumer of the dQ pass: rows [iw0, iw0 + 64), dQ += dS K over the
+// ring's key tiles.
+template <int kD, bool kCap>
+__device__ __forceinline__ void dq_consumer(const Params& p, const QBlock& qb,
+                                            int ci) {
+  constexpr int kChunks = kD / 16;
+  const int shift = p.seq_k - p.seq_q;
+  const int iw0 = qb.i0 + kRows * ci;
+  const int iw_hi = min(iw0 + kRows, p.seq_q) - 1;
+  // this thread's two rows: lse * log2(e) (+inf past S) and D
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = iw0 + acc_row(2 * r);
+    const size_t o = (size_t(qb.b) * p.heads + qb.h) * p.seq_q + i;
+    lse2[r] = i < p.seq_q ? p.lse[o] * kLog2e : __int_as_float(0x7f800000);
+    dd[r] = i < p.seq_q ? p.dsum[o] : 0.f;
+  }
+  float acc[kD / 2];
+#pragma unroll
+  for (int n = 0; n < kD / 2; ++n) acc[n] = 0.f;
+  hopper::mbar_wait(qb.res, 0);
+
+  int stage = 0, phase = 0;
+  for (int it = 0; it < qb.total; ++it) {
+    const int j0 = qb.k_begin + it * kRows;
+    hopper::mbar_wait(&qb.full[stage], phase);
+    const __nv_bfloat16* k_t = reinterpret_cast<const __nv_bfloat16*>(
+        qb.ring + stage * qb.stage_bytes);
+    const __nv_bfloat16* v_t = k_t + kChunks * kBox;
+    const bool skip =
+        iw0 >= p.seq_q || (p.causal && j0 > iw_hi + shift) ||
+        (p.window > 0 && j0 + kRows - 1 <= iw0 + shift - p.window);
+    if (!skip) {
+      const bool masked =
+          j0 + kRows > p.seq_k || (p.causal && j0 + kRows - 1 > iw0 + shift) ||
+          (p.window > 0 && j0 <= iw_hi + shift - p.window);
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+      score<kD>(s, qb.q + ci * kBox, 2 * kBox, k_t);
+      score<kD>(dp, qb.dout + ci * kBox, 2 * kBox, v_t);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < 32; ++n) {
+        const int r = (n & 3) >> 1;
+        float dcap;
+        float pv = prob<kCap>(s[n], lse2[r], p, dcap);
+        if (masked && !p.keep(iw0 + acc_row(n), j0 + acc_col(n))) pv = 0.f;
+        dp[n] = kCap ? pv * (dp[n] - dd[r]) * dcap : pv * (dp[n] - dd[r]);
+      }
+      uint32_t dsf[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsf[kk][r] = frag(dp, kk, r);
+      hopper::wgmma_fence();
+      grad<kD>(acc, dsf, k_t);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    hopper::mbar_arrive(&qb.empty[stage]);
+    if (++stage == Rings<kD>::q) { stage = 0; phase ^= 1; }
+  }
+  const size_t q_row = size_t(p.heads) * p.hd;
+  store_tile<kD>(p.out0, acc, p.scale,
+                 size_t(qb.b) * p.seq_q * q_row + size_t(qb.h) * p.hd, q_row,
+                 iw0, p.seq_q, p.hd);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q,
+    const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v,
+    const __grid_constant__ CUtensorMap map_do, const Params p) {
+  constexpr int kChunks = kD / 16;
+  constexpr int kStages = Rings<kD>::q;
+  constexpr int kStageBytes = 2 * kChunks * kBox * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* do_s = q_s + kChunks * 2 * kBox;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(do_s + kChunks * 2 * kBox);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* res = empty + kStages;
+
+  const int h = blockIdx.x % p.heads, b = blockIdx.x / p.heads;
+  const int kvh = h / (p.heads / p.kv_heads);
+  // heaviest first: under a causal mask the last query tiles see most keys
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * 2 * kRows;
+  const int shift = p.seq_k - p.seq_q;
+  const int live = (p.hd + 15) / 16;
+  int k_end = p.seq_k, k_begin = 0;
+  if (p.causal) k_end = min(k_end, min(i0 + 2 * kRows, p.seq_q) + shift);
+  if (p.window > 0) k_begin = max(0, i0 + shift - p.window + 1);
+  k_begin = (k_begin / kRows) * kRows;
+  const int total =
+      k_end > k_begin ? (k_end - k_begin + kRows - 1) / kRows : 0;
+
+  if (live < kChunks) {
+    zero_dead(q_s, 2, 2 * live, 2 * kChunks);  // Q, dO: 2 boxes a chunk
+    for (int s = 0; s < kStages; ++s)  // K and V
+      zero_dead(reinterpret_cast<__nv_bfloat16*>(ring + s * kStageBytes), 2,
+                live, kChunks);
+    hopper::fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * kConsumers);
+    }
+    hopper::mbar_init(res, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg_idx = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+  if (wg_idx == kConsumers) {
+    // producer: one thread issues the TMA copies
+    if (threadIdx.x != 128 * kConsumers) return;
+    hopper::tma_prefetch(&map_k);
+    hopper::tma_prefetch(&map_v);
+    hopper::mbar_arrive_expect_tx(res, 2 * live * 2 * kBox * 2);
+    load_rows(q_s, &map_q, res, live, 2, h, i0, b);
+    load_rows(do_s, &map_do, res, live, 2, h, i0, b);
+    int stage = 0, phase = 0;
+    for (int it = 0; it < total; ++it) {
+      const int j0 = k_begin + it * kRows;
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      __nv_bfloat16* k_t =
+          reinterpret_cast<__nv_bfloat16*>(ring + stage * kStageBytes);
+      hopper::mbar_arrive_expect_tx(&full[stage], 2 * live * kBox * 2);
+      load_rows(k_t, &map_k, &full[stage], live, 1, kvh, j0, b);
+      load_rows(k_t + kChunks * kBox, &map_v, &full[stage], live, 1, kvh, j0,
+                b);
+      if (++stage == kStages) { stage = 0; phase ^= 1; }
+    }
+  } else {
+    const QBlock qb{q_s, do_s, ring,  kStageBytes, full, empty, res,
+                    i0,  k_begin, total, b,          h};
+    if (p.softcap > 0.f) dq_consumer<kD, true>(p, qb, wg_idx);
+    else dq_consumer<kD, false>(p, qb, wg_idx);
+  }
+}
+
+}  // namespace wg
+
+template <int kD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* dsum, void* dq, void* dk, void* dv,
+                         int batch, int seq_q, int seq_k, int heads,
+                         int kv_heads, int hd, float scale, int causal,
+                         int window, float softcap, cudaStream_t stream) {
+  const long long tiles_k = (seq_k + wg::kRows - 1) / wg::kRows;
+  const long long tiles_q = (seq_q + 2 * wg::kRows - 1) / (2 * wg::kRows);
+  if (tiles_k > 65535 || tiles_q > 65535 ||
+      static_cast<long long>(heads) * batch >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  cudaError_t err =
+      hopper::encode_rows_map(&map_q, q, batch, seq_q, heads, hd, wg::kRows);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_map(&map_k, k, batch, seq_k, kv_heads, hd,
+                                  wg::kRows);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_map(&map_v, v, batch, seq_k, kv_heads, hd,
+                                  wg::kRows);
+  if (err == cudaSuccess)
+    err = hopper::encode_rows_map(&map_do, dout, batch, seq_q, heads, hd,
+                                  wg::kRows);
+  if (err != cudaSuccess) return err;
+  const size_t smem_kv = wg::dkdv_smem<kD>(), smem_q = wg::dq_smem<kD>();
+  err = cudaFuncSetAttribute(wg::flash_bwd_dkdv_wgmma_kernel<kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem_kv));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wg::flash_bwd_dq_wgmma_kernel<kD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem_q));
+  if (err != cudaSuccess) return err;
+  wg::Params p{lse, dsum, static_cast<__nv_bfloat16*>(dk),
+               static_cast<__nv_bfloat16*>(dv), seq_q, seq_k, heads,
+               kv_heads, hd, causal, window, scale, softcap};
+  wg::flash_bwd_dkdv_wgmma_kernel<kD>
+      <<<dim3(kv_heads * batch, unsigned(tiles_k)), wg::kThreads, smem_kv,
+         stream>>>(map_q, map_k, map_v, map_do, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  p.out0 = static_cast<__nv_bfloat16*>(dq);
+  p.out1 = nullptr;
+  wg::flash_bwd_dq_wgmma_kernel<kD>
+      <<<dim3(heads * batch, unsigned(tiles_q)), wg::kThreads, smem_q,
+         stream>>>(map_q, map_k, map_v, map_do, p);
+  return cudaGetLastError();
+}
+
 template <typename T, int kR, int kC>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* dsum,
@@ -806,7 +1475,31 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
       seq_q, heads, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+#define FA_BWD_LAUNCH(R, C)                                                  \
+  return launch<T, R, C>(q, k, v, dout, lse, dsum, dq, dk, dv, batch, seq_q, \
+                         seq_k, heads, kv_heads, hd, scale, causal, window,  \
+                         softcap, stream)
   if constexpr (sizeof(T) == 2) {
+    // the design by shape (kernel_bwd.py::design mirrors it): wgmma where
+    // a TMA map can take the rows, else mma.sync up to hd 128, else the
+    // CUDA cores
+    const bool aligned = (reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) |
+                          reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
+    if (aligned && hd % 8 == 0 && hd <= 192) {
+#define FA_BWD_WG_LAUNCH(D)                                                  \
+  return launch_wgmma<D>(q, k, v, dout, lse, dsum, dq, dk, dv, batch, seq_q, \
+                         seq_k, heads, kv_heads, hd, scale, causal, window,  \
+                         softcap, stream)
+      if (hd <= 32) FA_BWD_WG_LAUNCH(32);
+      if (hd <= 64) FA_BWD_WG_LAUNCH(64);
+      if (hd <= 80) FA_BWD_WG_LAUNCH(80);
+      if (hd <= 96) FA_BWD_WG_LAUNCH(96);
+      if (hd <= 128) FA_BWD_WG_LAUNCH(128);
+      FA_BWD_WG_LAUNCH(192);
+#undef FA_BWD_WG_LAUNCH
+    }
 #define FA_BWD_TC_LAUNCH(D)                                                  \
   return launch_tc<D>(q, k, v, dout, lse, dsum, dq, dk, dv, batch, seq_q,    \
                       seq_k, heads, kv_heads, hd, scale, causal, window,     \
@@ -816,17 +1509,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     if (hd <= 96) FA_BWD_TC_LAUNCH(96);
     if (hd <= 128) FA_BWD_TC_LAUNCH(128);
 #undef FA_BWD_TC_LAUNCH
+    if (hd <= 192) FA_BWD_LAUNCH(2, 12);
+    if (hd <= 256) FA_BWD_LAUNCH(2, 16);
+  } else {
+    if (hd <= 64) FA_BWD_LAUNCH(4, 4);
+    if (hd <= 80) FA_BWD_LAUNCH(4, 5);
+    if (hd <= 96) FA_BWD_LAUNCH(4, 6);
+    if (hd <= 128) FA_BWD_LAUNCH(4, 8);
+    if (hd <= 192) FA_BWD_LAUNCH(2, 12);
+    if (hd <= 256) FA_BWD_LAUNCH(2, 16);
   }
-#define FA_BWD_LAUNCH(R, C)                                                  \
-  return launch<T, R, C>(q, k, v, dout, lse, dsum, dq, dk, dv, batch, seq_q, \
-                         seq_k, heads, kv_heads, hd, scale, causal, window,  \
-                         softcap, stream)
-  if (hd <= 64) FA_BWD_LAUNCH(4, 4);
-  if (hd <= 80) FA_BWD_LAUNCH(4, 5);
-  if (hd <= 96) FA_BWD_LAUNCH(4, 6);
-  if (hd <= 128) FA_BWD_LAUNCH(4, 8);
-  if (hd <= 192) FA_BWD_LAUNCH(2, 12);
-  if (hd <= 256) FA_BWD_LAUNCH(2, 16);
 #undef FA_BWD_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,9 @@ CUDA kernel in ``csrc/flash_attention_bwd.cu``.
 It computes the gradient of ``kernel.py::flash_attention`` (the port of
 the TPU kernel ``repro/kernels/flash_attention/kernel.py::
 flash_attention``, which has no backward there; see the note at the top of
-the CUDA source for its design and what bounds it on an H100).  The
+the CUDA source for its designs and what bounds it on an H100).  The
+source picks one of three hand-written designs by shape; :func:`design`
+states that choice in Python.  The
 library is built with ``nvcc`` for ``sm_90a`` at first launch
 (``kernels/build.py``).  The wrapper checks device, dtype, shape and
 contiguity, allocates the gradients and the f32 ``D = rowsum(dO * O)``
@@ -29,6 +31,9 @@ from repro_torch.kernels.flash_attention.kernel import (_DTYPES,
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
 _TILE_MIN = 32                  # the smallest row tile of the CUDA source
+WGMMA_MAX_HEAD_DIM = 192        # the widest head of the wgmma design (MLA's)
+MMA_MAX_HEAD_DIM = 128          # the widest head of the mma.sync design
+_WGMMA_TILES = (64, 128)        # (key, query) rows a wgmma block takes
 
 # Backward calls made through flash_attention_bwd since import or since a
 # caller last set it to 0 (one per call; each call runs the source's three
@@ -50,6 +55,25 @@ def build() -> BuiltLibrary:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return built
+
+
+def design(hd: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The design the CUDA source's ``dispatch`` runs for a call: "wgmma"
+    (TMA and wgmma) for bf16 with ``hd`` a multiple of 8 up to 192 and
+    16-byte-aligned q, k, v, dO (``aligned``), which a TMA map can stride;
+    "mma" (mma.sync) for the other bf16 widths up to 128; "cuda_cores"
+    for float32 at every width and bf16 beyond those."""
+    if dtype == torch.bfloat16:
+        if aligned and hd % 8 == 0 and hd <= WGMMA_MAX_HEAD_DIM:
+            return "wgmma"
+        if hd <= MMA_MAX_HEAD_DIM:
+            return "mma"
+    return "cuda_cores"
+
+
+def aligned(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -93,6 +117,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     _check(h <= _GRID_YZ_MAX and b <= _GRID_YZ_MAX
            and -(-max(s, t_len) // _TILE_MIN) < 2 ** 31,
            "too many heads, batch rows or tiles for the grid")
+    if design(hd, q.dtype, aligned(q, k, v, do)) == "wgmma":
+        # the tiles run down the grid's y dimension, the heads across x
+        _check(-(-t_len // _WGMMA_TILES[0]) <= _GRID_YZ_MAX
+               and -(-s // _WGMMA_TILES[1]) <= _GRID_YZ_MAX
+               and h * b < 2 ** 31, "too many tiles for the wgmma grid")
     _check(window >= 0, f"window {window} must be >= 0")
     _check(softcap is None or softcap > 0, f"softcap {softcap} must be > 0")
     if scale is None:

@@ -84,3 +84,21 @@ def test_scan_backward_kernels_include_the_shared_header():
             [src], build.COMMON_INCLUDE)
         fwd = KERNELS / name / "csrc" / f"{name}.cu"
         assert build.source_digest([src]) != build.source_digest([fwd])
+
+
+def test_flash_backward_alone_includes_the_hopper_header():
+    """The Hopper pieces (mbarriers, TMA, wgmma descriptors) live in their
+    own shared header, which the flash backward includes and neither
+    serving forward does; the default digest covers it, so editing it
+    rebuilds every library."""
+    header = build.COMMON_INCLUDE / "hopper.cuh"
+    assert header.is_file()
+    bwd = KERNELS / "flash_attention" / "csrc" / "flash_attention_bwd.cu"
+    assert '#include "hopper.cuh"' in bwd.read_text()
+    for name in ("flash_attention", "paged_attention"):
+        fwd = KERNELS / name / "csrc" / f"{name}.cu"
+        assert "hopper.cuh" not in fwd.read_text()
+    assert "hopper.cuh" not in (build.COMMON_INCLUDE /
+                                "tc_attention.cuh").read_text()
+    assert build.source_digest([bwd]) == build.source_digest(
+        [bwd], build.COMMON_INCLUDE)

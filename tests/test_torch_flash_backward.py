@@ -190,3 +190,46 @@ def test_scan_ops_refuse_autograd_on_the_kernel_path(which):
     # tensor)
     with torch.no_grad(), pytest.raises(ValueError):
         fn(*args, impl="kernel")
+
+
+# head_dim, dtype, 16-byte aligned q/k/v/dO -> the backward's design: wgmma
+# where a TMA map can stride the rows (bf16, hd a multiple of 8 up to MLA's
+# 192, aligned), mma.sync for the other bf16 widths up to 128, the CUDA
+# cores for float32 (whose exact products the lockstep runs need) and the
+# bf16 widths beyond both
+DESIGNS = [
+    (80, torch.bfloat16, True, "wgmma"),      # StableLM's training shape
+    (128, torch.bfloat16, True, "wgmma"),     # OLMo 2, Granite, StarCoder2
+    (16, torch.bfloat16, True, "wgmma"),
+    (72, torch.bfloat16, True, "wgmma"),
+    (112, torch.bfloat16, True, "wgmma"),
+    (136, torch.bfloat16, True, "wgmma"),
+    (192, torch.bfloat16, True, "wgmma"),     # MLA's nope + rope rows
+    (50, torch.bfloat16, True, "mma"),        # 100-byte rows: no TMA stride
+    (64, torch.bfloat16, False, "mma"),       # an unaligned view
+    (128, torch.bfloat16, False, "mma"),
+    (192, torch.bfloat16, False, "cuda_cores"),
+    (200, torch.bfloat16, True, "cuda_cores"),
+    (256, torch.bfloat16, True, "cuda_cores"),
+    (80, torch.float32, True, "cuda_cores"),
+    (128, torch.float32, True, "cuda_cores"),
+    (192, torch.float32, True, "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("hd,dtype,aligned,want", DESIGNS)
+def test_backward_design_by_shape(hd, dtype, aligned, want):
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    assert kernel_bwd.design(hd, dtype, aligned) == want
+
+
+def test_alignment_of_views():
+    """A contiguous view 2 bytes into its storage is not 16-byte aligned,
+    so its call would take the mma.sync design."""
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    base = torch.zeros(1 + 4 * 64, dtype=torch.bfloat16)
+    whole = base[:4 * 64].view(1, 4, 1, 64)
+    shifted = base[1:].view(1, 4, 1, 64)
+    assert shifted.is_contiguous()
+    assert kernel_bwd.aligned(whole)
+    assert not kernel_bwd.aligned(whole, shifted)

@@ -174,7 +174,11 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, t, h, kv, hd,
 
 
 # the backward's cases: the forward's option set at sizes off every tile
-# (64-row tiles up to hd 128, 32 above), GQA, T != S, rows no key reaches
+# (wgmma: 128-key and 128-query blocks of 64-row tiles, 64-key blocks above
+# hd 128; mma.sync: 64-row tiles; CUDA cores: 64 rows up to hd 128, 32
+# above), GQA, T != S, rows no key reaches; and each design (bf16 hd 50 and
+# unaligned views take mma.sync, f32 the CUDA cores, the rest wgmma with
+# the descriptors of every 16-column box count from 1 (hd 16) to 12)
 FLASH_BWD_CASES = [
     (1, 200, 200, 4, 4, 80, True, 0, None, torch.bfloat16, 2e-2),
     (1, 200, 200, 4, 4, 80, True, 0, None, torch.float32, 2e-3),
@@ -188,6 +192,13 @@ FLASH_BWD_CASES = [
     (1, 100, 100, 4, 4, 48, True, 0, None, torch.float32, 2e-3),
     (2, 1, 100, 4, 4, 64, False, 0, None, torch.float32, 2e-3),
     (1, 96, 96, 6, 2, 96, False, 0, 30.0, torch.bfloat16, 2e-2),
+    (1, 1000, 1000, 4, 4, 80, True, 0, None, torch.bfloat16, 2e-2),
+    (2, 200, 200, 4, 4, 16, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 300, 300, 8, 4, 72, True, 64, None, torch.bfloat16, 2e-2),
+    (1, 150, 230, 4, 4, 112, False, 0, None, torch.bfloat16, 2e-2),
+    (1, 256, 256, 8, 2, 128, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 130, 130, 4, 4, 50, True, 0, None, torch.bfloat16, 2e-2),
+    (1, 1000, 1000, 2, 2, 192, True, 0, None, torch.bfloat16, 2e-2),
 ]
 
 
@@ -264,6 +275,58 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, b, s, t, h, kv,
         scale = float(r.float().abs().max())
         err = float((x.grad.float() - r.float()).abs().max())
         assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hd,kv,dtype,want", [
+    (1000, 80, 4, torch.bfloat16, "wgmma"),
+    (300, 128, 2, torch.bfloat16, "wgmma"),
+    (1000, 192, 4, torch.bfloat16, "wgmma"),
+    (130, 50, 4, torch.bfloat16, "mma"),
+    (200, 64, 4, torch.float32, "cuda_cores"),
+])
+def test_flash_bwd_kernel_repeats_its_bits(cuda_device, s, hd, kv, dtype,
+                                           want):
+    """No atomics: two calls on the same inputs give the same bits, in
+    each design."""
+    from repro_torch.kernels.flash_attention import kernel_bwd as bkernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v, do = _flash_bwd_inputs(s + hd, 1, s, s, 4, kv, hd, dtype,
+                                    cuda_device)
+    assert bkernel.design(hd, dtype, bkernel.aligned(q, k, v, do)) == want
+    o, lse = flash_attention_ref(q, k, v, return_lse=True)
+    o = o.contiguous()
+    first = bkernel.flash_attention_bwd(q, k, v, o, lse, do)
+    again = bkernel.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, g, g2 in zip("qkv", first, again):
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_unaligned_views(cuda_device):
+    """bf16 hd 64 on views 2 bytes off a 16-byte boundary: no TMA map can
+    take them, so the source runs its mma.sync design, with the same
+    result as the plain version."""
+    from repro_torch.kernels.flash_attention import kernel_bwd as bkernel
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    shape = (1, 200, 4, 64)
+    tensors = _flash_bwd_inputs(3, *shape[:2], shape[1], 4, 4, 64,
+                                torch.bfloat16, cuda_device)
+    q, k, v, do = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(shape)
+                   for t in tensors)
+    assert q.is_contiguous() and not bkernel.aligned(q, k, v, do)
+    assert bkernel.design(64, torch.bfloat16, False) == "mma"
+    o, lse = flash_attention_ref(q, k, v, return_lse=True)
+    o = o.contiguous()
+    grads = bkernel.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, g, r in zip("qkv", grads,
+                          flash_attention_bwd_ref(q, k, v, o, lse, do)):
+        scale = float(r.float().abs().max())
+        assert float((g.float() - r.float()).abs().max()) <= 2e-2 * scale, \
+            name
 
 
 @pytest.mark.cuda

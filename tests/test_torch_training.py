@@ -37,9 +37,12 @@ from repro_torch.training.data import SyntheticTokenPipeline
 from repro_torch.training.trainer import (_unflatten, batch_to_torch,
                                           make_train_step, train, trainable)
 
+# the head_dim-128 stacks (OLMo 2, Granite, StarCoder2) are the widths whose
+# training backward the wgmma design of the flash backward serves on a card
 ARCHS = ("stablelm_3b", "gemma2_27b", "mixtral_8x7b", "jamba_v0_1_52b",
          "rwkv6_1_6b", "deepseek_v2_236b", "phi_3_vision_4_2b",
-         "seamless_m4t_large_v2")
+         "seamless_m4t_large_v2", "olmo2_7b", "granite_3_8b",
+         "starcoder2_7b")
 WINDOW = 8          # Gemma 2's windows, cut so that 24-token batches see them
 
 
