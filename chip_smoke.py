@@ -783,15 +783,33 @@ def wkv_bwd_bound(torch, r):
     return least_time(torch, nbytes, ops, torch.float32)
 
 
+def short_kernel_name(name: str) -> str:
+    """A profiler's kernel name without its return type, namespace and
+    arguments: 'wkv_bwd_cluster_kernel<64>'."""
+    name = name.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+    return name.split("(")[0]
+
+
 def check_wkv_bwd(torch) -> list:
     """The WKV backward kernel against ``rwkv6_scan_bwd_ref`` on the same
     inputs and cotangents, every gradient within 2e-3 of its own max
     |value|, f32 throughout; timed beside the plain version (a Python
-    loop over S: at the training shape timed once, after no warm-up)."""
+    loop over S: at the training shape timed once, after no warm-up).  At
+    the training shape also: two calls give the same bits, and each CUDA
+    kernel of a call is timed apart under ``torch.profiler`` (the split).
+    Logs how many clusters of each head width's kernel the card holds at
+    once."""
     import numpy as np
     from repro_torch.kernels.rwkv6_scan import kernel_bwd as wkvb_kernel
+    from repro_torch.kernels.rwkv6_scan.kernel import HEAD_DIMS
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
+    from repro_torch.launch.profile_wkv_bwd import kernel_split
 
+    fits = {hd: wkvb_kernel.max_clusters(hd) for hd in HEAD_DIMS}
+    log("[3/8] rwkv6_scan_bwd: clusters the card holds at once, by head "
+        "width: " + ", ".join(
+            f"hd {hd} ({wkvb_kernel.cluster_size(hd)} blocks) {n}"
+            for hd, n in fits.items()))
     # name, B, S, H, hd, s0 and a cotangent on s_final, w_log = 6 on some
     # channels; the first is the training shape (phase 8's RWKV-6 layer)
     cases = [("rwkv6 train B=2 S=4096 H=32 hd=64", 2, 4096, 32, 64, False,
@@ -801,7 +819,11 @@ def check_wkv_bwd(torch) -> list:
              ("hd 32, B=3 H=5 S=70", 3, 70, 5, 32, True, False),
              ("hd 128, B=3 H=5 S=70", 3, 70, 5, 128, True, False),
              ("w past f32 underflow (w_log = 6 on a third of the channels)",
-              2, 200, 4, 64, True, True)]
+              2, 200, 4, 64, True, True),
+             ("hd 128, S=1000, a cluster of 8", 2, 1000, 4, 128, True,
+              False),
+             ("more clusters than fit at once, B=4 H=40 S=333", 4, 333, 40,
+              64, True, False)]
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
     tol = 2e-3
     results = []
@@ -824,7 +846,22 @@ def check_wkv_bwd(torch) -> list:
         torch.cuda.synchronize()
         refs = rwkv6_scan_bwd_ref(*args)
         ok, errs, scales = hold_grads(torch, names, grads, refs, tol)
-        del grads, refs
+        del refs
+        extra = {}
+        if not results:
+            again = wkvb_kernel.rwkv6_scan_bwd(*args)
+            torch.cuda.synchronize()
+            extra["same_bits"] = all(torch.equal(x, y)
+                                     for x, y in zip(grads, again))
+            del again
+            extra["split_ms"] = kernel_split(
+                lambda: wkvb_kernel.rwkv6_scan_bwd(*args))
+            log(f"[3/8] rwkv6_scan_bwd {name}: two calls give the same "
+                f"bits: {extra['same_bits']}; kernels of one call: " +
+                "; ".join(f"{short_kernel_name(kname)} {kms:.4f} ms"
+                          for kname, kms in extra["split_ms"].items()))
+            ok = ok and extra["same_bits"]
+        del grads
         big = s * b * h > 2 ** 16
         ms = cuda_ms(torch, lambda: wkvb_kernel.rwkv6_scan_bwd(*args),
                      iters=5 if big else 20, graph=True)
@@ -839,7 +876,9 @@ def check_wkv_bwd(torch) -> list:
             "grad_max_abs": scales, "tol": tol, "ok": ok, "ms": ms,
             "plain_ms": plain_ms, "plain_iters": 1 if big else 3,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "ops": ops})
+            "bytes": nbytes, "ops": ops,
+            "cluster_blocks": wkvb_kernel.cluster_size(hd),
+            "max_clusters": fits[hd], **extra})
         log(f"[3/8] rwkv6_scan_bwd {name}: B={b} S={s} H={h} hd={hd}: "
             f"max_abs_err " + " ".join(f"{g} {errs[g]:.3g}" for g in names)
             + f" (tol {tol} x max|grad| " + " ".join(
@@ -850,7 +889,7 @@ def check_wkv_bwd(torch) -> list:
         if not ok:
             raise AssertionError(f"WKV backward kernel disagrees with its "
                                  f"plain version on {name}: {errs}, "
-                                 f"max|grad| {scales}")
+                                 f"max|grad| {scales}, {extra}")
         del args, r, k, v, w, u, s0, dy, dsf
         torch.cuda.empty_cache()
     return results

@@ -2,6 +2,7 @@
 and of the shared headers, so an edited header rebuilds every kernel that
 may include it.  Needs no nvcc."""
 import pathlib
+import re
 import shutil
 
 from repro_torch.kernels import build
@@ -102,3 +103,31 @@ def test_flash_backward_alone_includes_the_hopper_header():
                                 "tc_attention.cuh").read_text()
     assert build.source_digest([bwd]) == build.source_digest(
         [bwd], build.COMMON_INCLUDE)
+
+
+def test_wkv_backward_is_one_cluster_kernel():
+    """The WKV backward is one cluster kernel (and the du sum): no column
+    tiles' partials, no finishing pass.  Its cross-block sums go through
+    the cluster helpers' header, which the default digest covers; no
+    forward includes that header."""
+    header = build.COMMON_INCLUDE / "cluster.cuh"
+    assert header.is_file()
+    text = header.read_text()
+    for op in ("barrier.cluster.arrive", "barrier.cluster.wait",
+               "mapa.shared::cluster", "ld.shared::cluster"):
+        assert op in text, op
+    src = KERNELS / "rwkv6_scan" / "csrc" / "rwkv6_scan_bwd.cu"
+    body = src.read_text()
+    assert '#include "cluster.cuh"' in body
+    assert "wkv_bwd_cluster_kernel" in body
+    assert "cudaLaunchAttributeClusterDimension" in body
+    for gone in ("wkv_bwd_finish_kernel", "wkv_bwd_ckpt_kernel"):
+        assert gone not in body, gone
+    assert not re.search(r"\bpart\b", body)   # the column tiles' partials
+    assert "atomicAdd" not in body and "red.global" not in body
+    assert build.source_digest([src]) == build.source_digest(
+        [src], build.COMMON_INCLUDE)
+    for name in ("rwkv6_scan", "selective_scan", "flash_attention",
+                 "paged_attention"):
+        fwd = KERNELS / name / "csrc" / f"{name}.cu"
+        assert "cluster.cuh" not in fwd.read_text(), name

@@ -557,6 +557,11 @@ def _hold(grads, refs, names, tol):
     (3, 70, 5, 32, True, False),
     (3, 70, 5, 128, True, False),
     (2, 80, 4, 64, True, True),        # w = 0 (w_log = 6) on some channels
+    (1, 1, 2, 64, True, False),        # one step, 31 pad steps
+    (2, 7, 3, 64, True, False),
+    (2, 33, 3, 64, True, False),       # one step into a second chunk
+    (1, 1000, 2, 128, True, False),    # a cluster of 8, ragged S
+    (4, 333, 40, 64, True, False),     # more clusters than fit at once
 ])
 def test_wkv_bwd_kernel_matches_plain_version(cuda_device, b, s, h, hd,
                                               state, underflow):
@@ -597,6 +602,26 @@ def test_wkv_bwd_kernel_matches_plain_version(cuda_device, b, s, h, hd,
     assert wkernel.launches == fwd_before + 1
     assert bkernel.launches == before + 2
     _hold([x.grad for x in xs], refs, names, 2e-3)
+
+
+@pytest.mark.cuda
+def test_wkv_bwd_kernel_gives_the_same_bits(cuda_device):
+    """Two calls give the same bits: the cross-block sums meet in a fixed
+    order, with no atomics."""
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd as bkernel
+    b, s, h, hd = 2, 300, 32, 64
+    r, k, v, w, u, s0 = (t.to(cuda_device) for t in
+                         _wkv_inputs(5, b, s, h, hd))
+    rng = np.random.default_rng(6)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(
+        np.float32)).to(cuda_device)
+    dsf = torch.from_numpy((rng.standard_normal((b, h, hd, hd)) * 0.1)
+                           .astype(np.float32)).to(cuda_device)
+    first = bkernel.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dsf)
+    again = bkernel.rwkv6_scan_bwd(r, k, v, w, u, s0, dy, dsf)
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

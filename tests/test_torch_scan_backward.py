@@ -29,6 +29,7 @@ from repro.models.params import init_from_plan as jax_init
 from repro_torch.configs.base import get_config as t_get_config
 from repro_torch.configs.base import reduced as t_reduced
 from repro_torch.kernels.rwkv6_scan import kernel_bwd as wkv_bwd_kernel
+from repro_torch.kernels.rwkv6_scan.kernel import HEAD_DIMS
 from repro_torch.kernels.rwkv6_scan.ops import Rwkv6ScanFn, rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_bwd_ref,
                                                 rwkv6_scan_ref)
@@ -180,6 +181,27 @@ def test_backward_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         scan_bwd_kernel.selective_scan_bwd(*scan, torch.zeros_like(scan[0]))
     assert wkv_bwd_kernel.launches == scan_bwd_kernel.launches == 0
+
+
+@pytest.mark.parametrize("hd,blocks", [(16, 1), (32, 2), (64, 2), (128, 8)])
+def test_wkv_bwd_cluster_size(hd, blocks):
+    """Blocks of 16 key rows (32 at hd 64, where 4 blocks of 16 do not fit
+    the training shape's 64 clusters on an H100 at once), within the
+    portable cluster size of 8, for every head width the kernel
+    compiles."""
+    assert hd in HEAD_DIMS
+    assert wkv_bwd_kernel.cluster_size(hd) == blocks <= 8
+
+
+@pytest.mark.parametrize("b,s,h,hd", [(2, 4096, 32, 64), (3, 70, 5, 128),
+                                      (1, 1, 2, 16), (4, 333, 40, 64)])
+def test_wkv_bwd_scratch_plan(b, s, h, hd):
+    """A call's scratch is the chunk checkpoints of S and one du share per
+    batch row: no [hd / 16, 3, B, S, H, hd] buffer of column-tile partials
+    (805 MB at RWKV-6's training shape)."""
+    plan = wkv_bwd_kernel.scratch_shapes(b, s, h, hd)
+    assert plan == {"ckpt": (b, h, -(-s // 32), hd, hd), "du_part": (b, h, hd)}
+    assert (hd // 16, 3, b, s, h, hd) not in plan.values()
 
 
 # ---------------------------------------------- layers against jax.vjp
