@@ -902,8 +902,8 @@ def scan_bwd_bound(torch, x, n):
     needs: per (step, channel, state) the rerun of h with its exponential
     (4), the adjoint (3), ddelta's and dA's terms (5), dx's, dB's and
     dC's (4); per (step, channel) ~8.  Also returns the exponentials' time
-    on the special-function units, once (the design evaluates them three
-    times)."""
+    on the special-function units, once (the design evaluates them twice
+    in the backward and once in the forward's checkpoint mode)."""
     b, s, d = x.shape
     es = x.element_size()
     nbytes = (b * s * d * (3 * es + 8) + 4 * b * s * n * 4
@@ -913,87 +913,177 @@ def scan_bwd_bound(torch, x, n):
     return least_time(torch, nbytes, ops, torch.float32) + (exp_ms,)
 
 
+def check_scan_ckpt(torch) -> dict:
+    """The forward kernel's checkpoint mode: h before every 32nd step
+    against the plain version's h at each chunk start (chunks chained
+    through the state), within 2e-3 of the plain h's max |value|, and y and
+    h_final as without it; at the training shape also the mode's extra
+    time (graph replay)."""
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.launch.profile_scan_bwd import inputs
+    # name, B, S, D, N, x dtype, h0; the 1-step-group instance below 8
+    # steps, ragged chunks, the 64-state build, the training shape
+    cases = (("S=1", 2, 1, 1024, 16, "float32", True),
+             ("S=7 (1-step groups) x bf16", 2, 7, 1024, 16, "bfloat16",
+              True),
+             ("S=33 N=64", 2, 33, 1024, 64, "float32", True),
+             ("ragged S=1000 D=8200 N=13", 1, 1000, 8200, 13, "float32",
+              True),
+             ("jamba train B=2 S=4096 D=8192 N=16 x bf16", 2, 4096, 8192,
+              16, "bfloat16", False))
+    tol, chunk = 2e-3, scan_kernel.CKPT_STEPS
+    out = {"cases": []}
+    for name, b, s, d, n, dt, state in cases:
+        args = inputs(b, s, d, n, dt, state=state)[:7]
+        x, delta, a, bm, cm, dd, h = args
+        y, hf, ckpt = scan_kernel.scan(*args, ckpt=True)
+        y0, hf0 = scan_kernel.scan(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(y, y0) and torch.equal(hf, hf0)
+        want = torch.empty_like(ckpt)
+        for k in range(ckpt.shape[1]):
+            want[:, k] = h
+            sl = slice(k * chunk, (k + 1) * chunk)
+            _, h = selective_scan_ref(
+                x[:, sl].contiguous(), delta[:, sl].contiguous(), a,
+                bm[:, sl].contiguous(), cm[:, sl].contiguous(), dd, h)
+        scale = float(want.abs().max())
+        err = float((ckpt - want).abs().max())
+        ok = same and bool(torch.isfinite(ckpt).all()) and \
+            err <= tol * scale
+        res = {"case": name, "shape": {"B": b, "S": s, "D": d, "N": n},
+               "x_dtype": dt, "max_abs_err": err, "h_max_abs": scale,
+               "tol": tol, "same_y_and_h_final": same, "ok": ok}
+        if s >= 4096:
+            res["fwd_ms"] = cuda_ms(torch, lambda: scan_kernel.scan(*args),
+                                    iters=5, graph=True)
+            res["fwd_ckpt_ms"] = cuda_ms(
+                torch, lambda: scan_kernel.scan(*args, ckpt=True), iters=5,
+                graph=True)
+            out["extra_ms"] = res["fwd_ckpt_ms"] - res["fwd_ms"]
+        out["cases"].append(res)
+        log(f"[3/8] selective_scan checkpoint mode {name}: B={b} S={s} "
+            f"D={d} N={n}: {ckpt.shape[1]} checkpoints, max_abs_err {err:.3g}"
+            f" (tol {tol} x max|h| {scale:.3g}); y and h_final as without "
+            f"the mode: {same}" + (
+                f"; forward {res['fwd_ms']:.4f} ms, in checkpoint mode "
+                f"{res['fwd_ckpt_ms']:.4f} ms (+{out['extra_ms']:.4f})"
+                if "fwd_ms" in res else ""))
+        if not ok:
+            raise AssertionError(f"the forward's checkpoints disagree with "
+                                 f"the plain h on {name}: {res}")
+        del args, x, delta, a, bm, cm, dd, h, y, hf, ckpt, y0, hf0, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_scan_bwd(torch) -> list:
     """The selective-scan backward kernel against
     ``selective_scan_bwd_ref`` on the same inputs and cotangents, every
     gradient within 2e-3 (x f32) or 2e-2 (x bf16: dy comes in bf16 and dx
-    leaves rounded) of its own max |value|; timed beside the plain
-    version (a Python loop over S: at the training shape timed once)."""
-    import numpy as np
+    leaves rounded) of its own max |value|; timed (a direct call, which
+    first makes the checkpoints with the forward's checkpoint mode) beside
+    the plain version (a Python loop over S: at the training shape timed
+    once).  At the training shape also: two calls give the same bits, the
+    call with the forward's checkpoints given (what a training step runs)
+    plus the checkpoint mode's extra time in the forward, and each CUDA
+    kernel of a call timed apart under ``torch.profiler`` (the split).
+    Logs how many of the walk's blocks an SM holds."""
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
     from repro_torch.kernels.selective_scan import kernel_bwd as scanb_kernel
     from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    from repro_torch.launch.profile_scan_bwd import CASES, inputs
+    from repro_torch.launch.profile_wkv_bwd import kernel_split
 
-    # name, B, S, D, N, x dtype, h0 and a cotangent on h_final, wide A;
-    # the first is the training shape (phase 8's Jamba Mamba layer)
-    cases = [("jamba train B=2 S=4096 D=8192 N=16 x bf16", 2, 4096, 8192, 16,
-              torch.bfloat16, False, False),
-             ("x f32 S=1024", 1, 1024, 8192, 16, torch.float32, False, False),
-             ("ragged S=1000 x f32", 1, 1000, 2048, 16, torch.float32, False,
-              False),
-             ("D=8200 off the channel tile S=70 x bf16", 1, 70, 8200, 16,
-              torch.bfloat16, False, False),
-             ("N=1 D=1000 S=45 x f32", 2, 45, 1000, 1, torch.float32, True,
-              False),
-             ("N=13 D=1001 S=50 x f32", 2, 50, 1001, 13, torch.float32, True,
-              False),
-             ("N=64 D=1024 S=40 x f32", 2, 40, 1024, 64, torch.float32, True,
-              False),
-             ("h0 and dh_final S=300 x f32", 2, 300, 1024, 16, torch.float32,
-              True, False),
-             ("delta * A past the exponential's flush to 0 x f32", 2, 96,
-              1024, 16, torch.float32, True, True)]
+    fits = {(n, dt): scanb_kernel.blocks_per_sm(n, dt) for n in (16, 64)
+            for dt in (torch.float32, torch.bfloat16)}
+    log("[3/8] selective_scan_bwd: the walk's blocks an SM: " + ", ".join(
+        f"N {n} x {str(dt).replace('torch.', '')} {b_sm}"
+        for (n, dt), b_sm in fits.items()))
+    ckpt_check = check_scan_ckpt(torch)
     names = ("dx", "ddelta", "da", "db", "dc", "dd", "dh0")
     results = []
-    for name, b, s, d, n, dt, with_state, wide in cases:
+    for name, b, s, d, n, dtn, with_state, wide in CASES:
+        dt = getattr(torch, dtn)
         tol = 2e-2 if dt == torch.bfloat16 else 2e-3
-        x, delta, a, bm, cm, dd = scan_inputs(torch, b, s, d, n, dt,
-                                              seed=s + n, with_h0=False,
-                                              wide_a=wide)
-        rng = np.random.default_rng(s + n + 1)
-
-        def dev(shape, scale=1.0):
-            return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                    .astype(np.float32)).to("cuda")
-        h0 = dev((b, d, n), 0.1) if with_state else \
-            torch.zeros((b, d, n), device="cuda")
-        dhf = dev((b, d, n), 0.1) if with_state else torch.zeros_like(h0)
-        dy = dev((b, s, d)).to(dt)
-        args = (x, delta, a, bm, cm, dd, h0, dy, dhf)
+        args = inputs(b, s, d, n, dtn, state=with_state, wide=wide)
+        x = args[0]
         grads = scanb_kernel.selective_scan_bwd(*args)
         torch.cuda.synchronize()
         refs = selective_scan_bwd_ref(*args)
         ok, errs, scales = hold_grads(torch, names, grads, refs, tol)
-        del grads, refs
+        del refs
+        extra = {}
+        if not results:
+            again = scanb_kernel.selective_scan_bwd(*args)
+            torch.cuda.synchronize()
+            extra["same_bits"] = all(torch.equal(p, q)
+                                     for p, q in zip(grads, again))
+            del again
+            _, _, ckpt = scan_kernel.scan(*args[:7], ckpt=True)
+            given = scanb_kernel.selective_scan_bwd(*args, ckpt=ckpt)
+            torch.cuda.synchronize()
+            extra["same_bits_ckpt_given"] = all(
+                torch.equal(p, q) for p, q in zip(grads, given))
+            del given
+            extra["ckpt_given_ms"] = cuda_ms(
+                torch, lambda: scanb_kernel.selective_scan_bwd(
+                    *args, ckpt=ckpt), iters=5, graph=True)
+            extra["ckpt_extra_ms"] = ckpt_check["extra_ms"]
+            extra["train_ms"] = (extra["ckpt_given_ms"]
+                                 + extra["ckpt_extra_ms"])
+            del ckpt
+            extra["split_ms"] = kernel_split(
+                lambda: scanb_kernel.selective_scan_bwd(*args))
+            log(f"[3/8] selective_scan_bwd {name}: two calls give the same "
+                f"bits: {extra['same_bits']} (and with the forward's "
+                f"checkpoints given: {extra['same_bits_ckpt_given']}); with "
+                f"them given {extra['ckpt_given_ms']:.4f} ms, + the "
+                f"checkpoint mode's {extra['ckpt_extra_ms']:.4f} ms in the "
+                f"forward = {extra['train_ms']:.4f} ms a training step pays;"
+                f" kernels of one direct call: " + "; ".join(
+                    f"{short_kernel_name(kname)} {kms:.4f} ms"
+                    for kname, kms in extra["split_ms"].items()))
+            ok = ok and extra["same_bits"] and extra["same_bits_ckpt_given"]
+        del grads
         big = s * b * d > 2 ** 24
-        ms = cuda_ms(torch, lambda: scanb_kernel.selective_scan_bwd(*args),
-                     iters=5 if big else 20, graph=True)
+        direct_ms = cuda_ms(
+            torch, lambda: scanb_kernel.selective_scan_bwd(*args),
+            iters=5 if big else 20, graph=True)
         plain_ms = cuda_ms(torch, lambda: selective_scan_bwd_ref(*args),
                            iters=1 if big else 3, warmup=0 if big else 1)
         bound_ms, bound_by, nbytes, ops, exp_ms = scan_bwd_bound(torch, x, n)
         err = max(errs.values())
+        b_sm = fits[(16 if n <= 16 else 64, dt)]
         results.append({
             "case": name, "shape": {"B": b, "S": s, "D": d, "N": n},
-            "x_dtype": str(dt).replace("torch.", ""),
-            "h0_and_dh_final": with_state, "wide_a": wide,
+            "x_dtype": dtn, "h0_and_dh_final": with_state, "wide_a": wide,
             "max_abs_err": err, "errs": errs, "grad_max_abs": scales,
-            "tol": tol, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+            "tol": tol, "ok": ok,
+            # the main path's call: the forward's checkpoints given
+            "ms": extra.get("ckpt_given_ms", direct_ms),
+            "direct_ms": direct_ms, "plain_ms": plain_ms,
             "plain_iters": 1 if big else 3, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": ops, "sfu_exp_ms": exp_ms})
+            "ops": ops, "sfu_exp_ms": exp_ms, "blocks_per_sm": b_sm,
+            **extra})
         log(f"[3/8] selective_scan_bwd {name}: B={b} S={s} D={d} N={n}: "
             f"max_abs_err " + " ".join(f"{g} {errs[g]:.3g}" for g in names)
             + f" (tol {tol} x max|grad| " + " ".join(
-                f"{scales[g]:.3g}" for g in names) + f"); kernel {ms:.4f} "
-            f"ms, plain {plain_ms:.1f} ms ({'1 call' if big else '3 calls'}),"
-            f" library none, bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop; the exponentials "
-            f"once on the SFUs {exp_ms:.4f} ms)")
+                f"{scales[g]:.3g}" for g in names) + f"); kernel "
+            f"{direct_ms:.4f} ms a direct call, plain {plain_ms:.1f} ms "
+            f"({'1 call' if big else '3 calls'}), library none, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+            f"{ops / 1e9:.3f} Gop; the exponentials once on the SFUs "
+            f"{exp_ms:.4f} ms)")
         if not ok:
             raise AssertionError(f"selective-scan backward kernel disagrees "
                                  f"with its plain version on {name}: {errs}, "
-                                 f"max|grad| {scales}")
-        del args, x, delta, a, bm, cm, dd, h0, dhf, dy
+                                 f"max|grad| {scales}, {extra}")
+        del args, x
         torch.cuda.empty_cache()
+    results[0]["checkpoint_mode"] = ckpt_check
     return results
 
 

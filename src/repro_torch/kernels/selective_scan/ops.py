@@ -33,23 +33,32 @@ class SelectiveScanFn(torch.autograd.Function):
     c, d, h0) -> (y, h_final), saving the seven inputs; the backward takes
     the cotangents of both outputs (zeros for an unused one).
     ``use_kernel`` picks the CUDA kernels (forward and backward), else
-    their plain versions."""
+    their plain versions.  The forward kernel runs in its checkpoint mode
+    and the backward kernel reruns h from the checkpoints it saves (h
+    before every 32nd step)."""
 
     @staticmethod
     def forward(ctx, x, delta, a, b, c, d, h0, use_kernel):
-        fwd = _kernel.selective_scan if use_kernel else selective_scan_ref
-        y, h_final = fwd(x, delta, a, b, c, d, h0)
-        ctx.save_for_backward(x, delta, a, b, c, d, h0)
+        ckpt = None
+        if use_kernel:
+            y, h_final, ckpt = _kernel.selective_scan(x, delta, a, b, c, d,
+                                                      h0, ckpt=True)
+        else:
+            y, h_final = selective_scan_ref(x, delta, a, b, c, d, h0)
+        ctx.save_for_backward(x, delta, a, b, c, d, h0, ckpt)
         ctx.use_kernel = use_kernel
         return y, h_final
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, dh_final):
-        bwd = (_kernel_bwd.selective_scan_bwd if ctx.use_kernel
-               else selective_scan_bwd_ref)
-        grads = bwd(*ctx.saved_tensors, dy.contiguous(),
-                    dh_final.contiguous())
+        *inputs, ckpt = ctx.saved_tensors
+        if ctx.use_kernel:
+            grads = _kernel_bwd.selective_scan_bwd(
+                *inputs, dy.contiguous(), dh_final.contiguous(), ckpt=ckpt)
+        else:
+            grads = selective_scan_bwd_ref(*inputs, dy.contiguous(),
+                                           dh_final.contiguous())
         return (*grads, None)
 
 

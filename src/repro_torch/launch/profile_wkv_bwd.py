@@ -38,7 +38,9 @@ CLASSES = (("FFMA", ("FFMA",)), ("FMUL", ("FMUL",)), ("FADD", ("FADD",)),
            ("LD/ST cluster", ("LD.", "ST.", "LD ", "ST ", "ATOMS")),
            ("BAR", ("BAR", "UCGABAR", "CGAERRBAR", "SYNCS")),
            ("LDGSTS", ("LDGSTS",)), ("LDG", ("LDG",)), ("STG", ("STG",)),
-           ("MOV", ("MOV", "IMAD.MOV")))
+           ("MOV", ("MOV", "IMAD.MOV")), ("MUFU", ("MUFU",)),
+           ("integer", ("IMAD", "IADD3", "LEA", "ISETP", "LOP3", "SHF",
+                        "SEL", "PRMT")))
 
 
 def opcode_class(op: str) -> str:
@@ -101,17 +103,18 @@ def loops(instrs) -> list:
     return sorted(out, key=lambda d: d["total"])
 
 
+def functions_report(so: Path, keep) -> dict:
+    """The function's and its loops' counts of each function of a
+    library whose mangled name ``keep(name)`` accepts."""
+    return {name: {"function": histogram(instrs), "loops": loops(instrs)}
+            for name, instrs in sass_functions(so).items() if keep(name)}
+
+
 def sass_report(so: Path, hd: int) -> dict:
     """Per kernel instance at head width ``hd`` (template argument ``hd``,
     or no template argument), the function's and its loops' counts."""
-    out = {}
-    for name, instrs in sass_functions(so).items():
-        if "wkv" not in name:
-            continue
-        if "ILi" in name and f"ILi{hd}E" not in name:
-            continue
-        out[name] = {"function": histogram(instrs), "loops": loops(instrs)}
-    return out
+    return functions_report(so, lambda name: "wkv" in name and (
+        "ILi" not in name or f"ILi{hd}E" in name))
 
 
 # name: (what it measures, edits of the source (old, new)); each old
@@ -143,31 +146,40 @@ VARIANTS = {
 }
 
 
-def build_variants() -> dict:
-    """{name: BuiltLibrary} of each variant, built in parallel, with the
-    C interface of ``kernel_bwd.build``."""
-    import ctypes
+def build_source_variants(source: Path, lib: str, variants: dict) -> dict:
+    """{name: BuiltLibrary} of each of ``variants`` ({name: (what, edits)})
+    applied to ``source``, built in parallel as libraries named
+    ``{lib}_{name}``; the caller binds their C interface."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.build import build_dir, load_library
-    from repro_torch.kernels.rwkv6_scan import kernel_bwd
-    text = kernel_bwd.SOURCE.read_text()
+    text = source.read_text()
     paths = {}
-    for name, (_, edits) in VARIANTS.items():
+    for name, (_, edits) in variants.items():
         src = text
         for old, new in edits:
             if src.count(old) != 1:
                 raise RuntimeError(f"variant {name}: {old!r} is not in the "
                                    f"source exactly once")
             src = src.replace(old, new)
-        path = build_dir() / f"rwkv6_scan_bwd_{name}.cu"
+        path = build_dir() / f"{lib}_{name}{source.suffix}"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(src)
         paths[name] = path
     with ThreadPoolExecutor(len(paths)) as pool:
-        built = dict(zip(paths, pool.map(
-            lambda kv: load_library(f"rwkv6_scan_bwd_{kv[0]}", [kv[1]]),
+        return dict(zip(paths, pool.map(
+            lambda kv: load_library(f"{lib}_{kv[0]}", [kv[1]]),
             paths.items())))
+
+
+def build_variants() -> dict:
+    """{name: BuiltLibrary} of each variant, built in parallel, with the
+    C interface of ``kernel_bwd.build``."""
+    import ctypes
+
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd
+    built = build_source_variants(kernel_bwd.SOURCE, "rwkv6_scan_bwd",
+                                  VARIANTS)
     for b in built.values():
         b.lib.rwkv6_scan_bwd.argtypes = [ctypes.c_void_p] * 16 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -216,12 +228,19 @@ def time_variants(xs, call) -> dict:
     fns = {"source": call, **{
         name: (lambda lib=b.lib: call_library(lib, xs))
         for name, b in built.items()}}
-    out = {name: {"ms": [], "clusters": (
+    ms = time_in_turns(fns)
+    return {name: {"ms": ms[name], "clusters": (
         max_clusters(built[name].lib, hd) if name in built else
         kernel_bwd.max_clusters(hd))} for name in fns}
+
+
+def time_in_turns(fns: dict) -> dict:
+    """{name: [ms, ms]}: each of ``fns`` by graph replay, in turns
+    (forward order, then reverse)."""
+    out = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
-            out[name]["ms"].append(graph_ms(fns[name]))
+            out[name].append(graph_ms(fns[name]))
     return out
 
 

@@ -131,3 +131,19 @@ def test_wkv_backward_is_one_cluster_kernel():
                  "paged_attention"):
         fwd = KERNELS / name / "csrc" / f"{name}.cu"
         assert "cluster.cuh" not in fwd.read_text(), name
+
+
+def test_scan_backward_takes_the_forwards_checkpoints():
+    """The selective-scan backward has no checkpoint pass of its own (the
+    forward's checkpoint mode writes them) and sums dB / dC with no
+    atomics and no cluster (measured slower), and the forward gains the
+    mode as a template flag."""
+    src = KERNELS / "selective_scan" / "csrc" / "selective_scan_bwd.cu"
+    body = src.read_text()
+    assert "ss_bwd_ckpt_kernel" not in body
+    assert "cluster.cuh" not in body
+    assert "atomicAdd" not in body and "red.global" not in body
+    fwd = (KERNELS / "selective_scan" / "csrc" / "selective_scan.cu")
+    text = fwd.read_text()
+    assert "bool kCkpt" in text and "if constexpr (kCkpt)" in text
+    assert "cluster.cuh" not in text

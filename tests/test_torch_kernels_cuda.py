@@ -678,6 +678,10 @@ def test_wkv_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     (2, 50, 1001, 13, torch.float32, True, False),
     (2, 40, 1024, 64, torch.float32, True, False),
     (2, 96, 1024, 16, torch.float32, True, True),      # e^{delta A} = 0
+    (2, 1, 1024, 16, torch.float32, True, False),      # one step, 31 pad
+    (2, 7, 1024, 16, torch.bfloat16, True, False),     # 1-step groups
+    (2, 33, 1024, 64, torch.float32, True, False),     # a step into chunk 2
+    (2, 1000, 1024, 16, torch.float32, True, False),   # ragged S, long
 ])
 def test_scan_bwd_kernel_matches_plain_version(cuda_device, b, s, d, n,
                                                dtype, state, wide):
@@ -726,6 +730,74 @@ def test_scan_bwd_kernel_matches_plain_version(cuda_device, b, s, d, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,dtype", [
+    (2, 300, 8192, 16, torch.bfloat16),   # the training shape, S cut
+    (2, 70, 8200, 64, torch.float32),     # D off the tile and the cluster
+])
+def test_scan_bwd_kernel_gives_the_same_bits_twice(cuda_device, b, s, d, n,
+                                                   dtype):
+    """No atomics: two calls give the same bits, with the forward's
+    checkpoints given or made by the wrapper, and the direct call leaves
+    the forward's launch count alone."""
+    from repro_torch.kernels.selective_scan import kernel as skernel
+    from repro_torch.kernels.selective_scan import kernel_bwd as bkernel
+    x, dt, a, bm, cm, dd, h0 = _scan_inputs(s + 3, b, s, d, n, dtype,
+                                            cuda_device)
+    rng = np.random.default_rng(s + 4)
+    dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype(
+        np.float32)).to(cuda_device, dtype)
+    dhf = torch.from_numpy((rng.standard_normal((b, d, n)) * 0.1).astype(
+        np.float32)).to(cuda_device)
+    args = (x, dt, a, bm, cm, dd, h0, dy, dhf)
+    fwd_before = skernel.launches
+    first = bkernel.selective_scan_bwd(*args)
+    assert skernel.launches == fwd_before
+    _, _, ckpt = skernel.selective_scan(x, dt, a, bm, cm, dd, h0, ckpt=True)
+    second = bkernel.selective_scan_bwd(*args, ckpt=ckpt)
+    third = bkernel.selective_scan_bwd(*args, ckpt=ckpt)
+    torch.cuda.synchronize()
+    for p, q, r in zip(first, second, third):
+        assert torch.equal(p, q) and torch.equal(q, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,dtype", [
+    (2, 1, 1024, 16, torch.float32),
+    (2, 7, 1024, 16, torch.bfloat16),     # the 1-step-group instance
+    (2, 33, 1024, 64, torch.float32),
+    (1, 1000, 8200, 13, torch.float32),   # ragged S, D and N
+    (2, 300, 8192, 16, torch.bfloat16),
+])
+def test_scan_kernel_checkpoints_match_plain_state(cuda_device, b, s, d, n,
+                                                   dtype):
+    """The forward's checkpoint mode: h before every 32nd step (h0 first)
+    against the plain version's state at each chunk start, within 2e-3 of
+    its max |value|, with y and h_final as without the mode."""
+    from repro_torch.kernels.selective_scan import kernel as skernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    x, dt, a, bm, cm, dd, h0 = _scan_inputs(s + 5, b, s, d, n, dtype,
+                                            cuda_device)
+    y, hf, ckpt = skernel.selective_scan(x, dt, a, bm, cm, dd, h0,
+                                         ckpt=True)
+    y0, hf0 = skernel.selective_scan(x, dt, a, bm, cm, dd, h0)
+    torch.cuda.synchronize()
+    step = skernel.CKPT_STEPS
+    assert ckpt.shape == skernel.ckpt_shape(b, s, d, n) == (
+        b, -(-s // step), d, n)
+    assert torch.equal(y, y0) and torch.equal(hf, hf0)
+    h = h0
+    for k in range(ckpt.shape[1]):
+        want = h
+        scale = float(want.abs().max())
+        err = float((ckpt[:, k] - want).abs().max())
+        assert err <= 2e-3 * scale, (k, err, scale)
+        sl = slice(step * k, step * (k + 1))
+        _, h = selective_scan_ref(x[:, sl].contiguous(), dt[:, sl]
+                                  .contiguous(), a, bm[:, sl].contiguous(),
+                                  cm[:, sl].contiguous(), dd, h)
+
+
+@pytest.mark.cuda
 def test_scan_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     from repro_torch.kernels.selective_scan import kernel_bwd as bkernel
     args = _scan_inputs(6, 1, 8, 64, 16, torch.float32, cuda_device)
@@ -740,3 +812,12 @@ def test_scan_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
         bkernel.selective_scan_bwd(args[0], args[1], wide, *args[3:], dy)
     with pytest.raises(ValueError, match="CUDA"):
         bkernel.selective_scan_bwd(*[t.cpu() for t in args], dy.cpu())
+    ckpt = torch.zeros((1, 1, 64, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="ckpt must be float32"):
+        bkernel.selective_scan_bwd(*args, dy, ckpt=ckpt[:, :, :32])
+    with pytest.raises(ValueError, match="ckpt must be float32"):
+        bkernel.selective_scan_bwd(*args, dy, ckpt=ckpt.double())
+    with pytest.raises(ValueError, match="ckpt must be contiguous"):
+        bkernel.selective_scan_bwd(*args, dy, ckpt=ckpt.expand(1, 1, 64, 16)
+                                   .transpose(2, 3).contiguous()
+                                   .transpose(2, 3))

@@ -33,6 +33,7 @@ from repro_torch.kernels.rwkv6_scan.kernel import HEAD_DIMS
 from repro_torch.kernels.rwkv6_scan.ops import Rwkv6ScanFn, rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_bwd_ref,
                                                 rwkv6_scan_ref)
+from repro_torch.kernels.selective_scan import kernel as scan_kernel
 from repro_torch.kernels.selective_scan import kernel_bwd as scan_bwd_kernel
 from repro_torch.kernels.selective_scan.ops import (SelectiveScanFn,
                                                     selective_scan)
@@ -202,6 +203,25 @@ def test_wkv_bwd_scratch_plan(b, s, h, hd):
     plan = wkv_bwd_kernel.scratch_shapes(b, s, h, hd)
     assert plan == {"ckpt": (b, h, -(-s // 32), hd, hd), "du_part": (b, h, hd)}
     assert (hd // 16, 3, b, s, h, hd) not in plan.values()
+
+
+@pytest.mark.parametrize("b,s,d,n,planes", [(2, 4096, 8192, 16, 128),
+                                            (1, 70, 8200, 16, 129),
+                                            (2, 40, 1024, 64, 64),
+                                            (3, 1, 100, 1, 2)])
+def test_scan_bwd_scratch_plan(b, s, d, n, planes):
+    """A call's scratch is one dB / dC plane per block of 64 channels (16
+    for N > 16), each batch row's share of dA and its dD shares by step
+    offset (four); the checkpoints of h (before every 32nd step, 134 MB at
+    Jamba's training shape) come from the forward."""
+    plan = scan_bwd_kernel.scratch_shapes(b, s, d, n)
+    assert plan == {"bc_part": (planes, 2, b, s, n), "a_part": (b, d, n),
+                    "d_part": (b, scan_bwd_kernel.XSTEPS, d)}
+    assert scan_bwd_kernel.XSTEPS == 4
+    assert scan_kernel.ckpt_shape(b, s, d, n) == (b, -(-s // 32), d, n)
+    if (b, s, d, n) == (2, 4096, 8192, 16):
+        assert 4 * np.prod(plan["bc_part"]) == 134217728
+        assert 4 * np.prod(scan_kernel.ckpt_shape(b, s, d, n)) == 134217728
 
 
 # ---------------------------------------------- layers against jax.vjp
