@@ -116,7 +116,18 @@ on its own line:
    kernels, each step's loss and every leaf's gradient held to the plain
    versions' on the same weights and batch (1e-5 relative; 1e-4 of the
    leaf's max |grad|); (f) ``examples/train_small.py``'s twin (reduced
-   Jamba, 200 steps) on the card: the loss must fall.
+   Jamba, 200 steps) on the card: the loss must fall;
+9. the launch layer (``repro_torch.launch``): the plan-level dry run of
+   the eleven configs x the four input shapes x both production meshes
+   (analytic per-device estimates, one line a config); then an NCCL
+   process group of one rank (a ``FileStore`` in a temporary directory)
+   and its 1 x 1 ``DeviceMesh``; full-width StableLM-3B trained 2 steps
+   through ``build_step``'s train step on phase 8 (a)'s seed, weights and
+   batch, whose losses must be phase 8 (a)'s first two bit for bit (at
+   world size 1 nothing is gathered or summed), with flash launched 2 x 2
+   x 32 times and its backward 2 x 32; a prefill (batch 2, prompt 1024)
+   and 4 serve steps through ``build_step`` on the trained weights, whose
+   tokens must be the direct ``prefill`` / ``decode_step`` calls'.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -2089,6 +2100,186 @@ def training(torch, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+# the launch layer's steps (launch/steps.py::build_step) on a live
+# DeviceMesh of this one card: world size 1 over NCCL, so nothing is
+# gathered or summed and the steps must give the direct calls' bits
+SHARDED = dict(arch="stablelm_3b", train_steps=2, prompt=1024, decodes=4,
+               cap=1088)
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def dry_runs() -> dict:
+    """The plan-level dry run of every config x input shape x production
+    mesh: one line a config with its analytic per-device estimates."""
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.launch.dryrun import dryrun
+    out = {}
+    t0 = time.perf_counter()
+    for arch in tuple(ARCH_IDS) + ("olmo2_7b",):
+        cells = []
+        for shape in DRYRUN_SHAPES:
+            for multi_pod in (False, True):
+                res = dryrun(arch, shape, multi_pod=multi_pod, verbose=False)
+                key = f"{shape}/{512 if multi_pod else 256}"
+                if res is None:
+                    cells.append(f"{key} skipped")
+                    continue
+                gib = res["analytic_memory"]["total"] / 2**30
+                out[f"{arch}/{key}"] = res
+                cells.append(f"{key} {gib:.2f}")
+        log(f"[9/9] dry run {arch} (analytic per-device GiB for the H100, "
+            f"from the plans, not measured; shape/chips): "
+            + ", ".join(cells))
+    log(f"[9/9] dry run: {len(out)} steps built on meta tensors and checked "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def sharded_steps(torch, smi: str, phase8_losses) -> dict:
+    """(1) the dry run; (2) an NCCL process group of one rank and its 1 x 1
+    mesh; (3) full-width StableLM-3B trained through ``build_step``'s
+    train step for 2 steps on phase 8 (a)'s seed, weights and batch: its
+    losses must be phase 8 (a)'s first two, bit for bit; (4) a prefill and
+    4 decode steps through ``build_step`` at batch 2, prompt 1024, on the
+    same weights: the tokens must be the direct calls'; (5) teardown."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    out = {"dryrun": dry_runs()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SHARDED["arch"])
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh("cuda")
+            log(f"[9/9] process group nccl, world 1; mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+            out["train"], params, tokens = _sharded_train(
+                torch, smi, cfg, mesh, phase8_losses)
+            out["decode"] = _sharded_decode(torch, cfg, mesh, params, tokens)
+        finally:
+            dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[9/9] phase 9 took {out['wall_s']:.1f} s")
+    return out
+
+
+def _sharded_train(torch, smi, cfg, mesh, phase8_losses) -> tuple:
+    """(result, the trained weights, the batch's tokens)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.shardings import shard_tree
+    from repro_torch.launch.specs import batch_plan
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.model import Model, model_plan
+    from repro_torch.models.params import pspecs_from_plan
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticTokenPipeline
+    from repro_torch.training.trainer import batch_to_torch
+    shape = InputShape("train_2x4096", TRAIN["seq"], TRAIN["batch"], "train")
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=TRAIN["warmup"],
+                           total_steps=TRAIN["steps"])
+    step, *_ = build_step(cfg, shape, mesh, ocfg=ocfg)
+    # phase 8 (a)'s batch and weights (launch/train.py::train_full_width)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, TRAIN["batch"],
+                                  TRAIN["seq"], seed=TRAIN["seed"])
+    data = batch_to_torch(next(pipe), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN["seed"])
+    params = Model(cfg, generator=gen, device="cuda").params
+    local = shard_tree(params, pspecs_from_plan(model_plan(cfg), mesh), mesh)
+    rows = shard_tree(data, pspecs_from_plan(batch_plan(cfg, shape, mesh),
+                                             mesh), mesh)
+    state = opt.init_state(local)
+    zero_counts()
+    losses, step_ms = [], []
+    for _ in range(SHARDED["train_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, state, aux = step(local, state, rows)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["loss"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = phase8_losses[:SHARDED["train_steps"]]
+    layers = len(cfg.layer_specs())
+    n = SHARDED["train_steps"]
+    log(f"[9/9] build_step train {cfg.name} full width (bf16, remat, batch "
+        f"{TRAIN['batch']} x seq {TRAIN['seq']}, {n} steps, phase 8 (a)'s "
+        f"seed, weights and batch; {smi}): step ms "
+        f"{[round(x, 1) for x in step_ms]}, peak {peak:.2f} GiB, losses "
+        f"{losses} against phase 8 (a)'s {want} "
+        f"(differences {[a - b for a, b in zip(losses, want)]}), launches "
+        f"flash_attention {counts['flash_attention']}, flash_attention_bwd "
+        f"{counts['flash_attention_bwd']}")
+    if losses != want:
+        raise AssertionError(f"build_step's losses {losses} are not phase 8 "
+                             f"(a)'s {want}: at world size 1 nothing is "
+                             f"gathered or summed, so the step must be the "
+                             f"direct step's arithmetic")
+    if (counts["flash_attention"], counts["flash_attention_bwd"]) != (
+            2 * n * layers, n * layers):
+        raise AssertionError(f"launches {counts}, expected flash "
+                             f"{2 * n * layers} and its backward {n * layers}")
+    del state, aux
+    return ({"losses": losses, "phase8_losses": want, "step_ms": step_ms,
+             "peak_gib": peak, "counts": counts, "nvidia_smi": smi},
+            local, data["tokens"])
+
+
+def _sharded_decode(torch, cfg, mesh, params, tokens) -> dict:
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.model import decode_step, prefill
+    b, cap = tokens.shape[0], SHARDED["cap"]
+    prompt = tokens[:, :SHARDED["prompt"]].contiguous()
+    pre, *_ = build_step(cfg, InputShape("prefill", cap, b, "prefill"), mesh)
+    serve, *_ = build_step(cfg, InputShape("decode", cap, b, "decode"), mesh)
+
+    def positions(i):
+        return torch.full((b,), SHARDED["prompt"] + i, dtype=torch.int32,
+                          device="cuda")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre(params, {"tokens": prompt})
+    steps = [logits.argmax(-1).to(torch.int32)]
+    for i in range(SHARDED["decodes"]):
+        logits, cache = serve(params, cache, steps[-1], positions(i))
+        steps.append(logits.argmax(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    del cache
+    logits, cache = prefill(params, cfg, prompt, seq_cap=cap)
+    direct = [logits.argmax(-1).to(torch.int32)]
+    for i in range(SHARDED["decodes"]):
+        logits = decode_step(params, cfg, cache, direct[-1], positions(i))
+        direct.append(logits.argmax(-1).to(torch.int32))
+    same = all(torch.equal(a, c) for a, c in zip(steps, direct))
+    toks = [t.tolist() for t in steps]
+    log(f"[9/9] build_step prefill (batch {b}, prompt {SHARDED['prompt']}, "
+        f"cache {cap}) + {SHARDED['decodes']} serve steps on the trained "
+        f"weights: tokens {toks}, the direct prefill/decode_step calls' "
+        f"{[t.tolist() for t in direct]}: identical {same}; "
+        f"{wall_ms:.1f} ms, launches flash_attention "
+        f"{counts['flash_attention']}")
+    if not same:
+        raise AssertionError("build_step's prefill/serve tokens are not the "
+                             "direct calls'")
+    if counts["flash_attention"] != len(cfg.layer_specs()):
+        raise AssertionError(f"prefill launched flash "
+                             f"{counts['flash_attention']} times")
+    return {"tokens": toks, "identical": same, "wall_ms": wall_ms,
+            "counts": counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2113,6 +2304,9 @@ def main() -> int:
     report["harness"] = harness(torch, report["device"]["nvidia_smi"])
     report["failures"] = failure_domains(torch, report["device"]["nvidia_smi"])
     report["training"] = training(torch, report["device"]["nvidia_smi"])
+    report["sharded"] = sharded_steps(
+        torch, report["device"]["nvidia_smi"],
+        report["training"]["full_width"]["stablelm_3b"]["losses"])
     report["total_s"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -34,9 +34,9 @@ not fit one card).  ``examples/train_small.py``'s twin on the card is
         --device cuda --expect-loss-drop
 
 (the reduced branch warms up for and logs every ``max(steps // 10, 1)``
-steps, 20 here, as the example does).  The reference's ``--full`` (a
-dry-run lowering on a 512-device mesh) has no counterpart yet (ROADMAP
-A7.3).
+steps, 20 here, as the example does).  ``--full`` runs the plan-level dry
+run of the published config's ``train_4k`` step on the production mesh
+(``launch/dryrun.py``), as the reference's ``--full`` runs its dry run.
 """
 from __future__ import annotations
 
@@ -210,8 +210,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--full", action="store_true",
-                    help="the reference's dry-run lowering on the "
-                         "production mesh (not ported yet)")
+                    help="the plan-level dry run of the full config's "
+                         "train_4k step on the production mesh")
     ap.add_argument("--full-width", action="store_true",
                     help="train the published config on one memorised "
                          "batch (bf16, remat)")
@@ -226,11 +226,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.full:
-        raise SystemExit(
-            "--full lowers the full config on a 512-device mesh in the JAX "
-            "package; the port has no mesh, shardings or dry run yet "
-            "(ROADMAP A7.3: torch.distributed DeviceMesh over 4 H100s and a "
-            "plan-level per-device memory check)")
+        from repro_torch.launch.dryrun import dryrun
+        return dryrun(args.arch, "train_4k")
     defaults = FULL_WIDTH if args.full_width else REDUCED
     steps = args.steps or defaults["steps"]
     batch = args.batch or defaults["batch"]

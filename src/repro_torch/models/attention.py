@@ -41,7 +41,8 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import apply_rope, einsum, rms_norm, softcap
+from repro_torch.models.common import (NO_POLICY, ShardPolicy, apply_rope,
+                                      einsum, rms_norm, softcap)
 from repro_torch.models.params import P
 
 _NEG_INF = -2.0e38
@@ -52,33 +53,42 @@ def attention_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
     d = cfg.d_model
     if a.kind == "mla":
         return {
-            "wq_a": P((d, a.q_lora_rank)),
-            "q_norm": P((a.q_lora_rank,), dtype="float32", init="zeros"),
+            "wq_a": P((d, a.q_lora_rank), pspec=("data", None)),
+            "q_norm": P((a.q_lora_rank,), dtype="float32", init="zeros",
+                        pspec=()),
             "wq_b": P((a.q_lora_rank, a.num_heads,
                        a.nope_head_dim + a.rope_head_dim),
-                      fan_in=a.q_lora_rank),
-            "wkv_a": P((d, a.kv_lora_rank + a.rope_head_dim)),
-            "kv_norm": P((a.kv_lora_rank,), dtype="float32", init="zeros"),
+                      fan_in=a.q_lora_rank, pspec=(None, "model", None)),
+            "wkv_a": P((d, a.kv_lora_rank + a.rope_head_dim),
+                       pspec=("data", None)),
+            "kv_norm": P((a.kv_lora_rank,), dtype="float32", init="zeros",
+                         pspec=()),
             "wk_b": P((a.kv_lora_rank, a.num_heads, a.nope_head_dim),
-                      fan_in=a.kv_lora_rank),
+                      fan_in=a.kv_lora_rank, pspec=(None, "model", None)),
             "wv_b": P((a.kv_lora_rank, a.num_heads, a.v_head_dim),
-                      fan_in=a.kv_lora_rank),
+                      fan_in=a.kv_lora_rank, pspec=(None, "model", None)),
             "wo": P((a.num_heads, a.v_head_dim, d),
-                    fan_in=a.num_heads * a.v_head_dim),
+                    fan_in=a.num_heads * a.v_head_dim,
+                    pspec=("model", None, "data")),
         }
     return cross_attention_plan(cfg)
 
 
 def cross_attention_plan(cfg: ModelConfig) -> dict:
     """GQA projections (a self-attention layer's and a cross-attention
-    block's are laid out alike)."""
+    block's are laid out alike): heads over ``model``, ``d`` over
+    ``data``; K/V replicate their heads when ``model`` does not divide
+    them (``alt``)."""
     a = cfg.attn
     d = cfg.d_model
     return {
-        "wq": P((d, a.num_heads, a.head_dim)),
-        "wk": P((d, a.num_kv_heads, a.head_dim)),
-        "wv": P((d, a.num_kv_heads, a.head_dim)),
-        "wo": P((a.num_heads, a.head_dim, d), fan_in=a.num_heads * a.head_dim),
+        "wq": P((d, a.num_heads, a.head_dim), pspec=("data", "model", None)),
+        "wk": P((d, a.num_kv_heads, a.head_dim),
+                pspec=("data", "model", None), alt=("data", None, None)),
+        "wv": P((d, a.num_kv_heads, a.head_dim),
+                pspec=("data", "model", None), alt=("data", None, None)),
+        "wo": P((a.num_heads, a.head_dim, d), fan_in=a.num_heads * a.head_dim,
+                pspec=("model", None, "data")),
     }
 
 
@@ -88,8 +98,9 @@ def kv_quantized() -> bool:
 
 
 def attn_cache_plan(cfg: ModelConfig, layer: LayerSpec, batch: int,
-                    seq_len: int) -> dict:
-    """Decode-cache plan for one attention layer.  MLA: the compressed
+                    seq_len: int, *, policy: ShardPolicy = NO_POLICY) -> dict:
+    """Decode-cache plan for one attention layer, sharded as the policy's
+    ``kv_cache`` (GQA) or ``mla_cache`` (MLA) says.  MLA: the compressed
     ``ckv``/``krope`` rows, planned in bf16 whatever the model dtype and
     never int8, as the reference plans them (so a float32 engine rounds
     them to bf16 on their way into the slot cache, as the JAX engine
@@ -99,24 +110,34 @@ def attn_cache_plan(cfg: ModelConfig, layer: LayerSpec, batch: int,
     cached K/V match prefill exactly)."""
     a = cfg.attn
     cap = min(seq_len, layer.window) if layer.window else seq_len
+    kvp = policy.kv_cache or ()
+    pos_spec = tuple(kvp[:2])
     if a.kind == "mla":
+        mp = policy.mla_cache or ()
         return {
-            "ckv": P((batch, cap, a.kv_lora_rank)),
-            "krope": P((batch, cap, a.rope_head_dim)),
-            "pos": P((batch, cap), dtype="int32"),
+            "ckv": P((batch, cap, a.kv_lora_rank), pspec=mp),
+            "krope": P((batch, cap, a.rope_head_dim), pspec=tuple(mp[:2])),
+            "pos": P((batch, cap), dtype="int32", pspec=tuple(mp[:2])),
         }
     if kv_quantized():
+        scale_spec = tuple(kvp[:3])
         return {
-            "k": P((batch, cap, a.num_kv_heads, a.head_dim), dtype="int8"),
-            "v": P((batch, cap, a.num_kv_heads, a.head_dim), dtype="int8"),
-            "k_scale": P((batch, cap, a.num_kv_heads), dtype="bfloat16"),
-            "v_scale": P((batch, cap, a.num_kv_heads), dtype="bfloat16"),
-            "pos": P((batch, cap), dtype="int32"),
+            "k": P((batch, cap, a.num_kv_heads, a.head_dim), dtype="int8",
+                   pspec=kvp),
+            "v": P((batch, cap, a.num_kv_heads, a.head_dim), dtype="int8",
+                   pspec=kvp),
+            "k_scale": P((batch, cap, a.num_kv_heads), dtype="bfloat16",
+                         pspec=scale_spec),
+            "v_scale": P((batch, cap, a.num_kv_heads), dtype="bfloat16",
+                         pspec=scale_spec),
+            "pos": P((batch, cap), dtype="int32", pspec=pos_spec),
         }
     return {
-        "k": P((batch, cap, a.num_kv_heads, a.head_dim), dtype=cfg.dtype),
-        "v": P((batch, cap, a.num_kv_heads, a.head_dim), dtype=cfg.dtype),
-        "pos": P((batch, cap), dtype="int32"),
+        "k": P((batch, cap, a.num_kv_heads, a.head_dim), dtype=cfg.dtype,
+               pspec=kvp),
+        "v": P((batch, cap, a.num_kv_heads, a.head_dim), dtype=cfg.dtype,
+               pspec=kvp),
+        "pos": P((batch, cap), dtype="int32", pspec=pos_spec),
     }
 
 
@@ -137,12 +158,16 @@ def _dequantize_kv(q, scale, dtype):
     return (q.float() * scale.float()[..., None]).to(dtype)
 
 
-def cross_cache_plan(cfg: ModelConfig, batch: int, enc_len: int) -> dict:
+def cross_cache_plan(cfg: ModelConfig, batch: int, enc_len: int, *,
+                     policy: ShardPolicy = NO_POLICY) -> dict:
     """The encoder memory's K/V for one cross-attention block."""
     a = cfg.attn
+    kvp = policy.kv_cache or ()
     return {
-        "ck": P((batch, enc_len, a.num_kv_heads, a.head_dim), dtype=cfg.dtype),
-        "cv": P((batch, enc_len, a.num_kv_heads, a.head_dim), dtype=cfg.dtype),
+        "ck": P((batch, enc_len, a.num_kv_heads, a.head_dim), dtype=cfg.dtype,
+                pspec=kvp),
+        "cv": P((batch, enc_len, a.num_kv_heads, a.head_dim), dtype=cfg.dtype,
+                pspec=kvp),
     }
 
 

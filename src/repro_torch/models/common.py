@@ -1,12 +1,35 @@
-"""Shared model components: norms, RoPE, activations (the PyTorch twin of
-``repro/models/common.py``, without its sharding helpers)."""
+"""Shared model components: norms, RoPE, activations and the sharding
+policy's fields (the PyTorch twin of ``repro/models/common.py``).
+
+The reference's ``shard()`` constrains an activation's layout inside a
+jitted program; an eager step has no such program, so the port keeps the
+policy's fields only (the cache plans read them) and its step places the
+data instead (``launch/steps.py``).
+"""
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class ShardPolicy:
+    """Activation sharding policy, resolved per (arch x input shape x
+    mesh).  Each field is a spec tuple (or None = no constraint)."""
+    act: Optional[Tuple] = None          # [B, S, d]
+    heads: Optional[Tuple] = None        # [B, S, H, hd]
+    kv_cache: Optional[Tuple] = None     # [B, S, KV, hd]
+    mla_cache: Optional[Tuple] = None    # [B, S, ckv(+rope)]
+    state: Optional[Tuple] = None        # [B, d_inner, ...] recurrent state
+    moe_buf: Optional[Tuple] = None      # [E, C, d]
+    logits: Optional[Tuple] = None       # [B, S, V] / [B, V]
+
+
+NO_POLICY = ShardPolicy()
 
 
 def einsum(equation: str, *operands):

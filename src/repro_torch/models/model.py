@@ -32,7 +32,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (cross_entropy_loss, einsum, gated_ffn,
+from repro_torch.models.common import (NO_POLICY, ShardPolicy,
+                                      cross_entropy_loss, einsum, gated_ffn,
                                       rms_norm, softcap)
 from repro_torch.models.params import P, init_from_plan, map_plan, torch_dtype
 
@@ -44,8 +45,8 @@ from repro_torch.models.params import P, init_from_plan, map_plan, torch_dtype
 def dense_ffn_plan(cfg: ModelConfig, spec) -> dict:
     d = cfg.d_model
     return {
-        "w_in": P((d, 2, spec.d_ff)),
-        "w_out": P((spec.d_ff, d), fan_in=spec.d_ff),
+        "w_in": P((d, 2, spec.d_ff), pspec=("data", None, "model")),
+        "w_out": P((spec.d_ff, d), fan_in=spec.d_ff, pspec=("model", "data")),
     }
 
 
@@ -65,7 +66,8 @@ def layer_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
             f"with a dense, MoE or no FFN, cross-attention after attention "
             f"only; RWKV-6 with its channel-mix)")
     d = cfg.d_model
-    plan: Dict[str, Any] = {"norm1": P((d,), dtype="float32", init="zeros")}
+    plan: Dict[str, Any] = {"norm1": P((d,), dtype="float32", init="zeros",
+                                       pspec=())}
     if layer.mixer == "attn":
         plan["attn"] = attn_mod.attention_plan(cfg, layer)
     elif layer.mixer == "mamba":
@@ -74,10 +76,10 @@ def layer_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
         # rwkv channel-mix params live inside the rwkv plan
         plan["rwkv"] = rwkv_mod.rwkv_plan(cfg)
     if layer.cross_attn:
-        plan["norm_x"] = P((d,), dtype="float32", init="zeros")
+        plan["norm_x"] = P((d,), dtype="float32", init="zeros", pspec=())
         plan["cross"] = attn_mod.cross_attention_plan(cfg)
     if layer.ffn in ("dense", "moe"):
-        plan["norm2"] = P((d,), dtype="float32", init="zeros")
+        plan["norm2"] = P((d,), dtype="float32", init="zeros", pspec=())
         fspec = cfg.ffn_spec_for(layer)
         if layer.ffn == "moe":
             plan["moe"] = moe_mod.moe_plan(cfg, fspec)
@@ -86,11 +88,17 @@ def layer_plan(cfg: ModelConfig, layer: LayerSpec) -> dict:
     return plan
 
 
+def _stack_leaf(p: P, n: int) -> P:
+    return P((n,) + tuple(p.shape), dtype=p.dtype, init=p.init,
+             fan_in=p.fan_in, pspec=(None,) + tuple(p.pspec),
+             alt=(None,) + tuple(p.alt) if p.alt is not None else None)
+
+
 def stack_plan(plan, n: int):
     """Stack every leaf on a leading ``[n]`` axis, keeping ``fan_in`` (a
-    leaf without one then scales by ``n``, as in the JAX package)."""
-    return map_plan(lambda p: P((n,) + tuple(p.shape), dtype=p.dtype,
-                                init=p.init, fan_in=p.fan_in), plan)
+    leaf without one then scales by ``n``, as in the JAX package); the
+    stacked axis is never sharded."""
+    return map_plan(lambda p: _stack_leaf(p, n), plan)
 
 
 # the encoder's layers: non-causal self-attention and a dense FFN
@@ -100,13 +108,14 @@ ENCODER_LAYER = LayerSpec(mixer="attn", ffn="dense")
 def model_plan(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
     plan: Dict[str, Any] = {
-        "embed": P((v, d), init="small"),
-        "final_norm": P((d,), dtype="float32", init="zeros"),
+        "embed": P((v, d), init="small", pspec=("model", "data")),
+        "final_norm": P((d,), dtype="float32", init="zeros", pspec=()),
     }
     if not cfg.tie_embeddings:
-        plan["lm_head"] = P((d, v))
+        plan["lm_head"] = P((d, v), pspec=("data", "model"))
     if cfg.frontend.kind != "none":
-        plan["frontend_proj"] = P((cfg.frontend.embed_dim, d))
+        plan["frontend_proj"] = P((cfg.frontend.embed_dim, d),
+                                  pspec=(None, "data"))
     if cfg.prefix:
         plan["prefix"] = {f"layer{i}": layer_plan(cfg, l)
                           for i, l in enumerate(cfg.prefix)}
@@ -118,42 +127,46 @@ def model_plan(cfg: ModelConfig) -> dict:
         plan["encoder"] = {
             "period": stack_plan({"sub0": layer_plan(cfg, ENCODER_LAYER)},
                                  cfg.encoder.num_layers),
-            "final_norm": P((d,), dtype="float32", init="zeros"),
+            "final_norm": P((d,), dtype="float32", init="zeros", pspec=()),
         }
     return plan
 
 
 def layer_cache_plan(cfg: ModelConfig, layer: LayerSpec, batch: int,
-                     seq_cap: int, enc_len: int = 0) -> dict:
+                     seq_cap: int, enc_len: int = 0, *,
+                     policy: ShardPolicy = NO_POLICY) -> dict:
     """A layer's decode cache: ``self`` (attention K/V or the recurrent
     state) and, for a cross-attending layer when ``enc_len`` > 0,
-    ``cross`` (the encoder memory's K/V)."""
+    ``cross`` (the encoder memory's K/V); sharded as ``policy`` says."""
     if layer.mixer == "attn":
-        plan = {"self": attn_mod.attn_cache_plan(cfg, layer, batch, seq_cap)}
+        plan = {"self": attn_mod.attn_cache_plan(cfg, layer, batch, seq_cap,
+                                                 policy=policy)}
     elif layer.mixer == "mamba":
-        plan = {"self": ssm_mod.mamba_state_plan(cfg, batch)}
+        plan = {"self": ssm_mod.mamba_state_plan(cfg, batch, policy=policy)}
     elif layer.mixer == "rwkv6":
-        plan = {"self": rwkv_mod.rwkv_state_plan(cfg, batch)}
+        plan = {"self": rwkv_mod.rwkv_state_plan(cfg, batch, policy=policy)}
     else:
         raise ValueError(layer.mixer)
     if layer.cross_attn and enc_len:
-        plan["cross"] = attn_mod.cross_cache_plan(cfg, batch, enc_len)
+        plan["cross"] = attn_mod.cross_cache_plan(cfg, batch, enc_len,
+                                                  policy=policy)
     return plan
 
 
 def cache_plan(cfg: ModelConfig, batch: int, seq_cap: int,
-               enc_len: int = 0) -> dict:
+               enc_len: int = 0, *, policy: ShardPolicy = NO_POLICY) -> dict:
     """The dense decode cache: prefix leaves ``[batch, ...]``, period
     leaves stacked ``[repeats, batch, ...]``; cross-attention leaves hold
     ``enc_len`` frames."""
     plan: Dict[str, Any] = {}
     if cfg.prefix:
         plan["prefix"] = {
-            f"layer{i}": layer_cache_plan(cfg, l, batch, seq_cap, enc_len)
+            f"layer{i}": layer_cache_plan(cfg, l, batch, seq_cap, enc_len,
+                                          policy=policy)
             for i, l in enumerate(cfg.prefix)}
     if cfg.period:
         period = {f"sub{i}": layer_cache_plan(cfg, l, batch, seq_cap,
-                                              enc_len)
+                                              enc_len, policy=policy)
                   for i, l in enumerate(cfg.period)}
         plan["period"] = stack_plan(period, cfg.repeats)
     return plan
@@ -193,10 +206,12 @@ def _zero(h):
     return torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def _ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
+def _ffn(lp, h, layer: LayerSpec, cfg: ModelConfig, batch_groups=()):
     """Residual dense gated FFN or MoE (``layer.ffn == "none"`` passes
     through; the RWKV channel-mix runs inside the rwkv6 layer, as in JAX).
-    Returns (h, aux): aux is the MoE load-balance loss, else 0."""
+    Returns (h, aux): aux is the MoE load-balance loss, else 0.  MoE
+    routes over the rows of every rank of ``batch_groups``
+    (``moe.moe_ffn``)."""
     if layer.ffn == "none":
         return h, _zero(h)
     if layer.ffn not in ("dense", "moe"):
@@ -204,15 +219,16 @@ def _ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
     x = rms_norm(h, lp["norm2"], cfg.norm_eps)
     fspec = cfg.ffn_spec_for(layer)
     if layer.ffn == "moe":
-        out, aux = moe_mod.moe_ffn(lp["moe"], x, fspec, cfg)
+        out, aux = moe_mod.moe_ffn(lp["moe"], x, fspec, cfg,
+                                   batch_groups=batch_groups)
         return h + out, aux
     return h + gated_ffn(x, lp["ffn"]["w_in"], lp["ffn"]["w_out"],
                          fspec.activation), _zero(h)
 
 
-def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig):
+def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig, batch_groups=()):
     """``_ffn`` without the load-balance loss (decode and serving)."""
-    return _ffn(lp, h, layer, cfg)[0]
+    return _ffn(lp, h, layer, cfg, batch_groups)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +245,7 @@ def _cross(lp, h, cfg: ModelConfig, ck, cv, *, kv_len=None,
 
 def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
                     seq_cap: int, memory=None, impl: str = "auto",
-                    want_cache: bool = True):
+                    want_cache: bool = True, batch_groups=()):
     """Full-sequence (train / prefill) layer application from an empty
     state.  h: [B,S,d]; positions: [B,S], each row ``arange(S)``;
     ``memory`` [B,F,d], the encoder output a cross-attending layer reads.
@@ -257,12 +273,12 @@ def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
             h = _cross(lp, h, cfg, ck, cv, impl=impl)
             if want_cache:
                 cache["cross"] = {"ck": ck, "cv": cv}
-        return (*_ffn(lp, h, layer, cfg), cache)
+        return (*_ffn(lp, h, layer, cfg, batch_groups), cache)
     if layer.mixer == "mamba":
         out, state = ssm_mod.mamba_prefill(lp["mamba"], xin, cfg, impl=impl)
         if want_cache:
             cache["self"] = state
-        return (*_ffn(lp, h + out, layer, cfg), cache)
+        return (*_ffn(lp, h + out, layer, cfg, batch_groups), cache)
     if layer.mixer != "rwkv6":
         raise ValueError(layer.mixer)
     b, d = h.shape[0], h.shape[-1]
@@ -282,7 +298,8 @@ def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
 
 
 def apply_layer_decode(lp, h, layer: LayerSpec, cfg: ModelConfig, positions,
-                       cache, *, cross_len=None, impl: str = "auto"):
+                       cache, *, cross_len=None, impl: str = "auto",
+                       batch_groups=()):
     """Single-token layer application.  h: [B,1,d]; positions: [B];
     ``cross_len`` [B], the valid frames of each row's ``cross`` cache
     (all of them when None).  Updates ``cache["self"]`` (this layer's) in
@@ -298,11 +315,11 @@ def apply_layer_decode(lp, h, layer: LayerSpec, cfg: ModelConfig, positions,
                 cross_len = torch.full((h.shape[0],), ck.shape[1],
                                        device=h.device)
             h = _cross(lp, h, cfg, ck, cv, kv_len=cross_len)
-        return _apply_ffn(lp, h, layer, cfg)
+        return _apply_ffn(lp, h, layer, cfg, batch_groups)
     if layer.mixer == "mamba":
         out = ssm_mod.mamba_decode(lp["mamba"], xin, cache["self"], cfg,
                                    impl=impl)
-        return _apply_ffn(lp, h + out, layer, cfg)
+        return _apply_ffn(lp, h + out, layer, cfg, batch_groups)
     if layer.mixer != "rwkv6":
         raise ValueError(layer.mixer)
     st = cache["self"]
@@ -363,7 +380,7 @@ def _remat_repeat(lps, h, aux, cfg: ModelConfig, positions, kw):
 
 def forward_seq(params, cfg: ModelConfig, h, positions, *, seq_cap: int,
                 memory=None, impl: str = "auto", want_cache: bool = True,
-                remat: bool = False):
+                remat: bool = False, batch_groups=()):
     """Runs the prefix and the period.  Returns (h, caches, aux): the
     caches laid out as ``cache_plan`` (period leaves stacked
     ``[repeats, ...]``) when ``want_cache``, else None; ``aux`` the MoE
@@ -373,7 +390,7 @@ def forward_seq(params, cfg: ModelConfig, h, positions, *, seq_cap: int,
     if remat and want_cache:
         raise ValueError("remat is for a training forward, without a cache")
     kw = dict(seq_cap=seq_cap, memory=memory, impl=impl,
-              want_cache=want_cache)
+              want_cache=want_cache, batch_groups=batch_groups)
     aux = _zero(h)
     caches: Dict[str, Any] = {}
     for i, layer in enumerate(cfg.prefix):
@@ -437,12 +454,14 @@ def encode(params, cfg: ModelConfig, frames, *, impl: str = "auto"):
 
 
 def train_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
-               impl: str = "auto"):
+               impl: str = "auto", batch_groups=()):
     """batch: {tokens [B,S], labels [B,S_text], embeds? [B,P,E] (a VLM's
     patches, before the tokens), frames? [B,F,E] (an enc-dec model's
     encoder input)}.  The causal-LM cross-entropy of the logits at the
     last ``S_text`` positions (the text tokens) against the labels, plus
-    the MoE load-balance loss; no cache is built.  A scalar f32 tensor."""
+    the MoE load-balance loss; no cache is built.  A scalar f32 tensor.
+    ``batch_groups``: the process groups of the batch axes when the
+    batch's rows lie on several ranks (MoE then routes over them all)."""
     memory = None
     if cfg.encoder is not None:
         memory = encode(params, cfg, batch["frames"], impl=impl)
@@ -452,7 +471,7 @@ def train_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
                             batch.get("embeds"))
     h, _, aux = forward_seq(params, cfg, h, _positions(h), seq_cap=h.shape[1],
                             memory=memory, impl=impl, want_cache=False,
-                            remat=remat)
+                            remat=remat, batch_groups=batch_groups)
     s_text = batch["labels"].shape[1]
     # the norm and the logits are per position: only the text rows' are made
     h = rms_norm(h[:, -s_text:], params["final_norm"], cfg.norm_eps)
@@ -462,7 +481,7 @@ def train_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, frames=None,
-            seq_cap=None, impl: str = "auto"):
+            seq_cap=None, impl: str = "auto", batch_groups=()):
     """tokens: [B,S]; ``embeds`` [B,P,E], a VLM's patch embeddings, put
     before the tokens (positions ``arange(P + S)``); ``frames`` [B,F,E],
     an enc-dec model's encoder input (the tokens are then the decoder's).
@@ -477,21 +496,22 @@ def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, frames=None,
         h = _merge_frontend(params, cfg, tokens, embeds)
     h, caches, _ = forward_seq(params, cfg, h, _positions(h),
                                seq_cap=seq_cap or h.shape[1], memory=memory,
-                               impl=impl)
+                               impl=impl, batch_groups=batch_groups)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), caches
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, token, positions, *,
-                cross_len=None, impl: str = "auto"):
+                cross_len=None, impl: str = "auto", batch_groups=()):
     """token: [B]; positions: [B] int32; ``cross_len`` [B], the valid
     frames of each row's cross-attention cache (all when None).  Writes
     this token into ``cache`` in place and returns logits [B,V] f32."""
     h = embed_tokens(params, cfg, token[:, None])
     for lp, layer, lc, _ in layer_walk(cfg, params, cache):
         h = apply_layer_decode(lp, h, layer, cfg, positions, lc,
-                               cross_len=cross_len, impl=impl)
+                               cross_len=cross_len, impl=impl,
+                               batch_groups=batch_groups)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h[:, 0])
 

@@ -10,6 +10,15 @@ weighted by the renormalised gates.  The sort is stable and the capacity
 rule is the reference's, so the same pairs are dropped as in JAX.  The
 expert products are plain products (JAX leaves them to XLA, outside any
 Pallas kernel).  DeepSeek-V2 shared experts run densely on every token.
+
+Routing is global in the reference: the capacity, the load-balance
+loss's means and the dispatch ranks are taken over the whole batch's
+tokens.  A step whose batch rows lie on several ranks passes the process
+groups of its batch axes (``batch_groups``, major first): the rows are
+gathered from every rank before routing, in the order of the global
+batch, and each rank keeps its own rows of the output; the gather's
+backward sums the cotangent over the ranks, so each rank's rows get
+every rank's share of the gradient.  Without groups nothing is gathered.
 """
 from __future__ import annotations
 
@@ -24,14 +33,20 @@ from repro_torch.models.params import P
 def moe_plan(cfg: ModelConfig, spec: FFNSpec) -> dict:
     d = cfg.d_model
     plan = {
-        "router": P((d, spec.num_experts), dtype="float32", init="small"),
-        "wi": P((spec.num_experts, d, 2, spec.d_ff), fan_in=d),
-        "wo": P((spec.num_experts, spec.d_ff, d), fan_in=spec.d_ff),
+        "router": P((d, spec.num_experts), dtype="float32", init="small",
+                     pspec=("data", None)),
+        # experts over `model`; tensor-parallel within an expert when the
+        # experts do not divide it (Mixtral's 8 on 16)
+        "wi": P((spec.num_experts, d, 2, spec.d_ff), fan_in=d,
+                pspec=("model", "data", None, None),
+                alt=(None, "data", None, "model")),
+        "wo": P((spec.num_experts, spec.d_ff, d), fan_in=spec.d_ff,
+                pspec=("model", None, "data"), alt=(None, "model", "data")),
     }
     if spec.num_shared_experts:
         sd = spec.d_ff * spec.num_shared_experts
-        plan["shared_wi"] = P((d, 2, sd))
-        plan["shared_wo"] = P((sd, d), fan_in=sd)
+        plan["shared_wi"] = P((d, 2, sd), pspec=("data", None, "model"))
+        plan["shared_wo"] = P((sd, d), fan_in=sd, pspec=("model", "data"))
     return plan
 
 
@@ -50,10 +65,53 @@ def route(params, tokens, spec: FFNSpec):
     return probs, gates, idx
 
 
-def moe_ffn(params, x, spec: FFNSpec, cfg: ModelConfig):
-    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar)."""
+def _rank_index(groups) -> int:
+    """This rank's place among the ranks of ``groups`` (major first)."""
+    import torch.distributed as dist
+    index = 0
+    for g in groups:
+        index = index * dist.get_world_size(g) + dist.get_rank(g)
+    return index
+
+
+class _GatherRows(torch.autograd.Function):
+    """Rows [T, d] of every rank of ``groups`` (major first), in the
+    mixed-radix order of the ranks' group ranks; backward: the cotangent
+    summed over the ranks, this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+        ctx.groups, ctx.rows = groups, x.shape[0]
+        ctx.index = _rank_index(groups)
+        out = x.contiguous()
+        for g in reversed(groups):       # minor first: blocks nest in order
+            parts = [torch.empty_like(out)
+                     for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, out, group=g)
+            out = torch.cat(parts)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        grad = grad.contiguous().clone()
+        for g in ctx.groups:
+            dist.all_reduce(grad, group=g)
+        lo = ctx.index * ctx.rows
+        return grad[lo: lo + ctx.rows], None
+
+
+def moe_ffn(params, x, spec: FFNSpec, cfg: ModelConfig, *,
+            batch_groups=()):
+    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar), routed over the
+    rows of every rank of ``batch_groups`` (this rank's alone when
+    empty)."""
     b, s, d = x.shape
     tokens = x.reshape(-1, d)                        # [T, d]
+    own = tokens.shape[0]
+    if batch_groups:
+        tokens = _GatherRows.apply(tokens, tuple(batch_groups))
     t = tokens.shape[0]
     k = spec.top_k
     e = spec.num_experts
@@ -105,4 +163,7 @@ def moe_ffn(params, x, spec: FFNSpec, cfg: ModelConfig):
         hs = act_fn(spec.activation)(gu_s[:, 0]) * gu_s[:, 1]
         out = out + einsum("tf,fd->td", hs, params["shared_wo"])
 
+    if batch_groups:
+        lo = _rank_index(batch_groups) * own
+        out = out[lo: lo + own]
     return out.reshape(b, s, d), aux

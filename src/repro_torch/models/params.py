@@ -1,11 +1,20 @@
-"""Parameter *plans*: single source of truth for shapes, dtypes and init of
-every parameter (the PyTorch twin of ``repro/models/params.py``).
+"""Parameter *plans*: single source of truth for shapes, dtypes, init and
+sharding of every parameter (the PyTorch twin of
+``repro/models/params.py``).
 
 A plan is a nested dict whose leaves are :class:`P`.  ``init_from_plan``
 turns it into concrete tensors with the same scale rules as the JAX
 package; the numbers differ because a ``torch.Generator`` is not a
 ``jax.random`` key (parity tests bridge the JAX params instead, see
-``models/bridge.py``).  The sharding specs and helpers are not ported.
+``models/bridge.py``).  ``specs_from_plan`` gives ``device="meta"``
+stand-ins (shape and dtype, no memory) for the dry run.
+
+Sharding rules live on the leaf (``pspec``: one entry a dimension, an
+axis name, a tuple of axis names or None), with an optional fallback
+``alt`` taken when ``pspec`` does not divide the leaf on the mesh (e.g.
+Mixtral's 8 experts on a 16-way ``model`` axis fall back to
+tensor-parallel-within-expert).  ``resolve_pspec`` returns the entries
+as a plain tuple: torch has no ``PartitionSpec``.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_view
 
 
 @dataclass(frozen=True)
@@ -24,6 +34,55 @@ class P:
     dtype: str = "bfloat16"
     init: str = "normal"          # normal | zeros | ones | small | identity_decay
     fan_in: Optional[int] = None  # override for scaled-normal init
+    pspec: Tuple = ()             # entries: axis name, tuple of names, None
+    alt: Optional[Tuple] = None   # fallback spec when pspec does not fit
+
+
+def _axis_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    shape = mesh_view(mesh).shape
+    if isinstance(entry, (tuple, list)):
+        return int(np.prod([shape[a] for a in entry]))
+    return shape[entry]
+
+
+def _spec_fits(mesh, shape, pspec) -> bool:
+    """True if every sharded dim divides evenly by its mesh extent."""
+    for dim, entry in zip(shape, pspec):
+        ext = _axis_size(mesh, entry)
+        if ext > 1 and (dim < ext or dim % ext != 0):
+            return False
+    return True
+
+
+def resolve_pspec(mesh, leaf: P) -> Tuple:
+    """The leaf's spec on ``mesh``, one entry a dimension: ``alt`` when
+    ``pspec`` does not fit, entries past the rank cut, axes the mesh lacks
+    dropped, and a dimension its mesh extent does not divide replicated
+    (e.g. StarCoder2's 36 heads or Granite's 49155 vocab on 16)."""
+    mesh = mesh_view(mesh)
+    spec = leaf.pspec
+    if leaf.alt is not None and not _spec_fits(mesh, leaf.shape, leaf.pspec):
+        spec = leaf.alt
+    names = set(mesh.axis_names)
+
+    def keep(e, dim):
+        if e is None:
+            return None
+        if isinstance(e, (tuple, list)):
+            e = tuple(a for a in e if a in names) or None
+        elif e not in names:
+            e = None
+        if e is None:
+            return None
+        ext = _axis_size(mesh, e)
+        if ext > 1 and (dim < ext or dim % ext != 0):
+            return None
+        return e
+
+    return tuple(keep(e, d) for e, d in zip(spec[: len(leaf.shape)],
+                                            leaf.shape))
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -80,5 +139,20 @@ def init_from_plan(plan, generator: torch.Generator, device="cuda"):
     return map_plan(lambda p: _init_leaf(generator, p, dev), plan)
 
 
+def specs_from_plan(plan):
+    """``device="meta"`` tensors of each leaf's shape and dtype."""
+    return map_plan(lambda p: torch.empty(p.shape, dtype=torch_dtype(p.dtype),
+                                          device="meta"), plan)
+
+
+def pspecs_from_plan(plan, mesh):
+    return map_plan(lambda p: resolve_pspec(mesh, p), plan)
+
+
 def count_params(plan) -> int:
     return int(sum(np.prod(p.shape) for p in plan_leaves(plan)))
+
+
+def param_bytes(plan) -> int:
+    return int(sum(np.prod(p.shape) * torch_dtype(p.dtype).itemsize
+                   for p in plan_leaves(plan)))

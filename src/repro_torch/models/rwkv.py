@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
-from repro_torch.models.common import einsum
+from repro_torch.models.common import NO_POLICY, ShardPolicy, einsum
 from repro_torch.models.params import P
 
 
@@ -44,31 +44,37 @@ def rwkv_plan(cfg: ModelConfig) -> dict:
     heads, hd = _dims(cfg)
     return {
         # token-shift interpolation weights (r,k,v,g,w)
-        "mu": P((5, d), init="small"),
-        "wr": P((d, d)),
-        "wk": P((d, d)),
-        "wv": P((d, d)),
-        "wg": P((d, d)),
-        "wo": P((d, d)),
-        "w0": P((d,), dtype="float32", init="small"),
-        "w_lora_a": P((d, r.decay_lora), init="small"),
-        "w_lora_b": P((r.decay_lora, d), init="small"),
-        "u": P((heads, hd), dtype="float32", init="small"),
-        "ln_x": P((d,), dtype="float32", init="zeros"),
+        "mu": P((5, d), init="small", pspec=(None, "data")),
+        "wr": P((d, d), pspec=("data", "model")),
+        "wk": P((d, d), pspec=("data", "model")),
+        "wv": P((d, d), pspec=("data", "model")),
+        "wg": P((d, d), pspec=("data", "model")),
+        "wo": P((d, d), pspec=("model", "data")),
+        "w0": P((d,), dtype="float32", init="small", pspec=("model",)),
+        "w_lora_a": P((d, r.decay_lora), init="small", pspec=("data", None)),
+        "w_lora_b": P((r.decay_lora, d), init="small", pspec=(None, "model")),
+        "u": P((heads, hd), dtype="float32", init="small",
+               pspec=("model", None)),
+        "ln_x": P((d,), dtype="float32", init="zeros", pspec=()),
         # channel-mix
-        "cm_mu": P((2, d), init="small"),
-        "cm_wr": P((d, d)),
-        "cm_wk": P((d, r.d_ffn)),
-        "cm_wv": P((r.d_ffn, d), fan_in=r.d_ffn),
+        "cm_mu": P((2, d), init="small", pspec=(None, "data")),
+        "cm_wr": P((d, d), pspec=("data", "model")),
+        "cm_wk": P((d, r.d_ffn), pspec=("data", "model")),
+        "cm_wv": P((r.d_ffn, d), fan_in=r.d_ffn, pspec=("model", "data")),
     }
 
 
-def rwkv_state_plan(cfg: ModelConfig, batch: int) -> dict:
+def rwkv_state_plan(cfg: ModelConfig, batch: int, *,
+                    policy: ShardPolicy = NO_POLICY) -> dict:
     heads, hd = _dims(cfg)
+    bsp = tuple((policy.state or ())[:1])
     return {
-        "shift_att": P((batch, cfg.d_model), dtype=cfg.dtype),
-        "shift_ffn": P((batch, cfg.d_model), dtype=cfg.dtype),
-        "wkv": P((batch, heads, hd, hd), dtype="float32"),
+        "shift_att": P((batch, cfg.d_model), dtype=cfg.dtype,
+                       pspec=bsp + (None,)),
+        "shift_ffn": P((batch, cfg.d_model), dtype=cfg.dtype,
+                       pspec=bsp + (None,)),
+        "wkv": P((batch, heads, hd, hd), dtype="float32",
+                 pspec=bsp + ("model", None, None)),
     }
 
 

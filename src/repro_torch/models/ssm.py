@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.selective_scan.ops import selective_scan
-from repro_torch.models.common import einsum
+from repro_torch.models.common import NO_POLICY, ShardPolicy, einsum
 from repro_torch.models.params import P
 
 
@@ -40,25 +40,30 @@ def mamba_plan(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     d_inner, dt_rank = _dims(cfg)
     return {
-        "in_proj": P((d, 2, d_inner)),
-        "conv_w": P((d_inner, m.d_conv), init="small"),
-        "conv_b": P((d_inner,), init="zeros"),
-        "x_proj": P((d_inner, dt_rank + 2 * m.d_state)),
-        "dt_proj": P((dt_rank, d_inner), fan_in=dt_rank),
-        "dt_bias": P((d_inner,), dtype="float32", init="small"),
+        "in_proj": P((d, 2, d_inner), pspec=("data", None, "model")),
+        "conv_w": P((d_inner, m.d_conv), init="small", pspec=("model", None)),
+        "conv_b": P((d_inner,), init="zeros", pspec=("model",)),
+        "x_proj": P((d_inner, dt_rank + 2 * m.d_state),
+                    pspec=("model", None)),
+        "dt_proj": P((dt_rank, d_inner), fan_in=dt_rank,
+                     pspec=(None, "model")),
+        "dt_bias": P((d_inner,), dtype="float32", init="small",
+                     pspec=("model",)),
         "A_log": P((d_inner, m.d_state), dtype="float32",
-                   init="identity_decay"),
-        "D": P((d_inner,), dtype="float32", init="ones"),
-        "out_proj": P((d_inner, d), fan_in=d_inner),
+                   init="identity_decay", pspec=("model", None)),
+        "D": P((d_inner,), dtype="float32", init="ones", pspec=("model",)),
+        "out_proj": P((d_inner, d), fan_in=d_inner, pspec=("model", "data")),
     }
 
 
-def mamba_state_plan(cfg: ModelConfig, batch: int) -> dict:
+def mamba_state_plan(cfg: ModelConfig, batch: int, *,
+                     policy: ShardPolicy = NO_POLICY) -> dict:
     m = cfg.mamba
     d_inner, _ = _dims(cfg)
+    sp = policy.state or ()
     return {
-        "conv": P((batch, d_inner, m.d_conv - 1), dtype=cfg.dtype),
-        "ssm": P((batch, d_inner, m.d_state), dtype="float32"),
+        "conv": P((batch, d_inner, m.d_conv - 1), dtype=cfg.dtype, pspec=sp),
+        "ssm": P((batch, d_inner, m.d_state), dtype="float32", pspec=sp),
     }
 
 

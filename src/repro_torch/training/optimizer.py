@@ -64,10 +64,12 @@ def init_state(params) -> AdamWState:
 
 
 def state_plan(param_plan) -> AdamWState:
-    """Plan-of-P for the optimizer state."""
+    """Plan-of-P for the optimizer state: each moment sharded as its
+    parameter."""
     def f32(p: P) -> P:
-        return P(p.shape, dtype="float32", init="zeros", fan_in=p.fan_in)
-    return AdamWState(step=P((), dtype="int32", init="zeros"),
+        return P(p.shape, dtype="float32", init="zeros", pspec=p.pspec,
+                 alt=p.alt)
+    return AdamWState(step=P((), dtype="int32", init="zeros", pspec=()),
                       mu=map_plan(f32, param_plan),
                       nu=map_plan(f32, param_plan))
 
@@ -78,20 +80,29 @@ def _slices(t: torch.Tensor):
     return t.reshape(-1).split(_SLICE)
 
 
+def sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    """The sum of the squares of a leaf's elements, in f32 (0-d)."""
+    return sum(torch.sum(torch.square(c.float())) for c in _slices(leaf))
+
+
 def _global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a 0-d tensor)."""
     total = None
     for leaf in plan_leaves(tree):
-        sq = sum(torch.sum(torch.square(c.float())) for c in _slices(leaf))
+        sq = sum_squares(leaf)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
+def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState, *,
+                  gnorm=None):
     """Updates ``params`` and ``state``'s moments in place.  Returns
-    (params, new state, diagnostics)."""
-    gnorm = _global_norm(grads)
+    (params, new state, diagnostics).  ``gnorm``: the gradients' global
+    norm when ``grads`` are shards of them (``launch/steps.py``), else
+    it is taken from ``grads``."""
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_at(cfg, step)

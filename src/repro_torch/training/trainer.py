@@ -3,7 +3,8 @@
 
 The step runs eagerly (there is no ``jax.jit``) and updates the
 parameters and the optimizer state in place.  It takes no sharding
-policy: the port has no sharding yet (ROADMAP A7.3).  ``train`` adds an
+policy: this is the single-process step (``launch/steps.py`` builds the
+sharded one on a ``DeviceMesh``).  ``train`` adds an
 explicit ``device`` (default ``"cuda"``), an optional ``params=`` to start
 from given weights (e.g. bridged from the JAX package; they are copied,
 never updated in place) and draws its initial weights from a

@@ -196,13 +196,13 @@ def test_jamba_dense_token_parity(jamba, jax_mamba_f32_conv, monkeypatch):
     over = []
     moe_ffn = t_moe.moe_ffn
 
-    def counting(params, x, spec, cfg):
+    def counting(params, x, spec, cfg, **kw):
         tokens = x.reshape(-1, x.shape[-1])
         _, _, idx = t_moe.route(params, tokens, spec)
         load = torch.bincount(idx.reshape(-1), minlength=spec.num_experts)
         cap = t_moe._capacity(tokens.shape[0], spec)
         over.append(int((load - cap).clamp(min=0).sum()))
-        return moe_ffn(params, x, spec, cfg)
+        return moe_ffn(params, x, spec, cfg, **kw)
     monkeypatch.setattr(t_moe, "moe_ffn", counting)
     rng = np.random.default_rng(2)
     trace = TRACE + [(90, 3)]

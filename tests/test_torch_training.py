@@ -327,8 +327,11 @@ def test_launch_train_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "final loss" in out and "checkpoint written" in out
     assert len(res.losses) == 3
-    with pytest.raises(SystemExit, match="A7.3"):
-        t_launch.main(["--full"])
+    # --full runs the plan-level dry run of the full config's train_4k step
+    res = t_launch.main(["--full"])
+    assert (res["arch"], res["shape"], res["num_chips"]) == (
+        "stablelm_3b", "train_4k", 256)
+    assert "H100 analytic est" in capsys.readouterr().out
 
 
 def test_period_layers_cut_keeps_widths_and_loss_check_exits():
