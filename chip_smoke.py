@@ -127,7 +127,18 @@ on its own line:
    world size 1 nothing is gathered or summed), with flash launched 2 x 2
    x 32 times and its backward 2 x 32; a prefill (batch 2, prompt 1024)
    and 4 serve steps through ``build_step`` on the trained weights, whose
-   tokens must be the direct ``prefill`` / ``decode_step`` calls'.
+   tokens must be the direct ``prefill`` / ``decode_step`` calls'; the
+   steps' collective tally (``launch/collectives.py``) must be 0 bytes at
+   world size 1, and the peak memory and the largest parameter gather
+   alive at once are printed; the dry run prints each step's analytic
+   collective bytes a device (``launch/dryrun.py::collective_bytes``);
+   then each kernel on a sharded path against its plain version at the
+   per-rank shape a 4-way ``model`` axis gives it (heads or channels / 4:
+   flash forward and backward at StableLM-3B's S = T = 4096 with 8 heads
+   of 80, MLA's 32 heads at hd 192, the WKV forward and backward at
+   RWKV-6's B 2, S 4096, 8 heads of 64, the selective scan's forward in
+   its checkpoint mode and its backward at Jamba's B 2, S 4096, D 2048,
+   N 16), phase 3's tolerances, each timed beside its plain version.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -2126,10 +2137,14 @@ def dry_runs() -> dict:
                     cells.append(f"{key} skipped")
                     continue
                 gib = res["analytic_memory"]["total"] / 2**30
+                comm = sum(res["collective_bytes_per_device"].values())
                 out[f"{arch}/{key}"] = res
-                cells.append(f"{key} {gib:.2f}")
+                cells.append(f"{key} {gib:.2f} (collectives "
+                             f"{comm / 2**30:.3f})")
         log(f"[9/9] dry run {arch} (analytic per-device GiB for the H100, "
-            f"from the plans, not measured; shape/chips): "
+            f"from the plans, not measured, and in brackets the GiB a "
+            f"device passes to collectives in one step, by "
+            f"launch/collectives.py's ring rules; shape/chips): "
             + ", ".join(cells))
     log(f"[9/9] dry run: {len(out)} steps built on meta tensors and checked "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -2146,7 +2161,9 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
     import tempfile
     import torch.distributed as dist
     from repro_torch.configs.base import get_config
+    from repro_torch.launch import collectives
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import partition
     t0 = time.perf_counter()
     out = {"dryrun": dry_runs()}
     gc.collect()
@@ -2160,11 +2177,29 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
             mesh = make_local_mesh("cuda")
             log(f"[9/9] process group nccl, world 1; mesh "
                 f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+            collectives.reset_tally()
+            partition.reset_gathered()
             out["train"], params, tokens = _sharded_train(
                 torch, smi, cfg, mesh, phase8_losses)
             out["decode"] = _sharded_decode(torch, cfg, mesh, params, tokens)
+            out["collective_bytes"] = collectives.read_tally()
+            out["gathered"] = partition.read_gathered()
         finally:
             dist.destroy_process_group()
+    log(f"[9/9] build_step's collective tally over the train, prefill and "
+        f"serve steps at world size 1: {out['collective_bytes']} bytes; "
+        f"peak memory {out['train']['peak_gib']:.2f} GiB ({smi}); gathered "
+        f"parameters alive at once: peak {out['gathered']['peak']} bytes, "
+        f"largest gather {out['gathered']['largest']} bytes (a 1 x 1 mesh "
+        f"stores every leaf whole, so nothing is gathered)")
+    if any(out["collective_bytes"].values()):
+        raise AssertionError(f"world size 1 passed "
+                             f"{out['collective_bytes']} bytes to "
+                             f"collectives: every group there has one rank")
+    del params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["per_rank"] = per_rank_kernels(torch, smi)
     out["wall_s"] = time.perf_counter() - t0
     log(f"[9/9] phase 9 took {out['wall_s']:.1f} s")
     return out
@@ -2278,6 +2313,171 @@ def _sharded_decode(torch, cfg, mesh, params, tokens) -> dict:
                              f"{counts['flash_attention']} times")
     return {"tokens": toks, "identical": same, "wall_ms": wall_ms,
             "counts": counts}
+
+
+# a 4-way `model` axis: the sharded path's kernel shapes on one rank, at
+# train_4k's sequence
+PER_RANK = dict(model=4, seq=4096)
+
+
+def per_rank_kernels(torch, smi: str) -> list:
+    """Each kernel a sharded step launches, at the per-rank shape a 4-way
+    ``model`` axis gives it, against its plain version with phase 3's
+    tolerances and timed beside it (CUDA events; the kernel's from a
+    graph's replays, the plain version's eager): flash's forward and
+    backward (bf16, 2e-2), the WKV's (f32; y and state 1e-4, gradients
+    2e-3 of their max |value|), the selective scan's forward in its
+    checkpoint mode (bf16 x: y 1e-2, state 1e-4, checkpoints 2e-3 of the
+    plain h's max) and its backward with those checkpoints (2e-2)."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import kernel_bwd as fab_kernel
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel_bwd as wkvb_kernel
+    from repro_torch.kernels.rwkv6_scan.ref import (rwkv6_scan_bwd_ref,
+                                                    rwkv6_scan_ref)
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
+    from repro_torch.kernels.selective_scan import kernel_bwd as scanb_kernel
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_bwd_ref, selective_scan_ref)
+    from repro_torch.launch.profile_scan_bwd import inputs as scan_args
+    m, seq = PER_RANK["model"], PER_RANK["seq"]
+    results = []
+
+    def done(name, shape, ok, errs, kernel_ms, plain_ms):
+        results.append({"case": name, "shape": shape, "ok": ok,
+                        "errs": errs, "ms": kernel_ms,
+                        "plain_ms": plain_ms, "nvidia_smi": smi})
+        log(f"[9/9] per-rank kernel {name} {shape} (model axis {m}): errors "
+            f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }; kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+        if not ok:
+            raise AssertionError(f"{name} at the per-rank shape disagrees "
+                                 f"with its plain version: {errs}")
+
+    # flash forward and backward: StableLM-3B's 32 heads of 80, and
+    # DeepSeek-V2's MLA 128 heads at hd 128 + 64 (V zero-padded), over m
+    for name, b, s, h, hd in (("flash stablelm_3b", 2, seq, 32 // m, 80),
+                              ("flash mla deepseek_v2", 1, seq, 128 // m,
+                               192)):
+        tol = 2e-2
+        q, k, v = flash_inputs(torch, b, s, s, h, h, hd, torch.bfloat16,
+                               seed=s + h)
+        if "mla" in name:
+            v[..., 128:] = 0
+        do = flash_inputs(torch, b, s, s, h, h, hd, torch.bfloat16,
+                          seed=s + 7)[0]
+        o, lse = fa_kernel.flash_attention(q, k, v, causal=True,
+                                           return_lse=True)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_ref(q, k, v, causal=True,
+                                             return_lse=True)
+        errs = {"o": float((o.float() - o_ref.float()).abs().max()),
+                "lse": float((lse - lse_ref).abs().max())}
+        ok = bool(torch.allclose(o.float(), o_ref.float(), rtol=tol,
+                                 atol=tol)) and bool(torch.allclose(
+                                     lse, lse_ref, rtol=tol, atol=tol))
+        shape = {"B": b, "S": s, "T": s, "H": h, "KV": h, "hd": hd,
+                 "dtype": "bfloat16"}
+        done(name + " forward", shape, ok, errs,
+             cuda_ms(torch, lambda: fa_kernel.flash_attention(
+                 q, k, v, causal=True), iters=5, graph=True),
+             cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True),
+                     iters=1, warmup=1))
+        args = (q, k, v, o, lse, do)
+        grads = fab_kernel.flash_attention_bwd(*args, causal=True)
+        torch.cuda.synchronize()
+        refs = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                       causal=True)
+        ok, errs, _ = hold_grads(torch, ("dq", "dk", "dv"), grads, refs, tol)
+        del grads, refs, o_ref, lse_ref
+        done(name + " backward", shape, ok, errs,
+             cuda_ms(torch, lambda: fab_kernel.flash_attention_bwd(
+                 *args, causal=True), iters=5, graph=True),
+             cuda_ms(torch, lambda: flash_attention_bwd_ref(
+                 *args, causal=True), iters=1, warmup=1))
+        del q, k, v, o, lse, do, args
+        torch.cuda.empty_cache()
+
+    # the WKV forward and backward: RWKV-6 1.6B's 32 heads of 64, over m
+    b, s, h, hd = 2, seq, 32 // m, 64
+    shape = {"B": b, "S": s, "H": h, "hd": hd, "dtype": "float32"}
+    args = wkv_inputs(torch, b, s, h, hd, torch.float32, seed=s + h)
+    y, sf = wkv_kernel.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    yr, sr = rwkv6_scan_ref(*args)
+    errs = {"y": float((y - yr).abs().max()),
+            "state": float((sf - sr).abs().max())}
+    ok = bool(torch.allclose(y, yr, rtol=1e-4, atol=1e-4)) and bool(
+        torch.allclose(sf, sr, rtol=1e-4, atol=1e-4))
+    done("rwkv6_scan forward", shape, ok, errs,
+         cuda_ms(torch, lambda: wkv_kernel.rwkv6_scan(*args), iters=5,
+                 graph=True),
+         cuda_ms(torch, lambda: rwkv6_scan_ref(*args), iters=1, warmup=0))
+    rng = np.random.default_rng(s + h + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(
+        np.float32)).to("cuda")
+    bargs = (*args, dy, torch.zeros_like(args[5]))
+    grads = wkvb_kernel.rwkv6_scan_bwd(*bargs)
+    torch.cuda.synchronize()
+    refs = rwkv6_scan_bwd_ref(*bargs)
+    ok, errs, _ = hold_grads(torch, ("dr", "dk", "dv", "dw", "du", "ds0"),
+                             grads, refs, 2e-3)
+    del grads, refs
+    done("rwkv6_scan backward", shape, ok, errs,
+         cuda_ms(torch, lambda: wkvb_kernel.rwkv6_scan_bwd(*bargs), iters=5,
+                 graph=True),
+         cuda_ms(torch, lambda: rwkv6_scan_bwd_ref(*bargs), iters=1,
+                 warmup=0))
+    del args, bargs, y, sf, yr, sr, dy
+    torch.cuda.empty_cache()
+
+    # the selective scan: Jamba's d_inner 8192 over m, the forward in its
+    # checkpoint mode (what a training step runs) and the backward given
+    # its checkpoints
+    b, s, d, n = 2, seq, 8192 // m, 16
+    shape = {"B": b, "S": s, "D": d, "N": n, "x_dtype": "bfloat16"}
+    args = scan_args(b, s, d, n, "bfloat16")
+    fwd = args[:7]
+    y, hf, ckpt = scan_kernel.scan(*fwd, ckpt=True)
+    torch.cuda.synchronize()
+    x, delta, a, bm, cm, dd, h = fwd
+    yr, hr = selective_scan_ref(*fwd)
+    want = torch.empty_like(ckpt)
+    chunk = scan_kernel.CKPT_STEPS
+    for i in range(ckpt.shape[1]):
+        want[:, i] = h
+        sl = slice(i * chunk, (i + 1) * chunk)
+        _, h = selective_scan_ref(
+            x[:, sl].contiguous(), delta[:, sl].contiguous(), a,
+            bm[:, sl].contiguous(), cm[:, sl].contiguous(), dd, h)
+    errs = {"y": float((y.float() - yr.float()).abs().max()),
+            "state": float((hf - hr).abs().max()),
+            "checkpoints": float((ckpt - want).abs().max())}
+    ok = (bool(torch.allclose(y.float(), yr.float(), rtol=1e-2, atol=1e-2))
+          and bool(torch.allclose(hf, hr, rtol=1e-4, atol=1e-4))
+          and errs["checkpoints"] <= 2e-3 * float(want.abs().max()))
+    done("selective_scan forward (checkpoint mode)", shape, ok, errs,
+         cuda_ms(torch, lambda: scan_kernel.scan(*fwd, ckpt=True), iters=5,
+                 graph=True),
+         cuda_ms(torch, lambda: selective_scan_ref(*fwd), iters=1, warmup=0))
+    grads = scanb_kernel.selective_scan_bwd(*args, ckpt=ckpt)
+    torch.cuda.synchronize()
+    refs = selective_scan_bwd_ref(*args)
+    ok, errs, _ = hold_grads(
+        torch, ("dx", "ddelta", "da", "db", "dc", "dd", "dh0"), grads, refs,
+        2e-2)
+    del grads, refs
+    done("selective_scan backward (checkpoints given)", shape, ok, errs,
+         cuda_ms(torch, lambda: scanb_kernel.selective_scan_bwd(
+             *args, ckpt=ckpt), iters=5, graph=True),
+         cuda_ms(torch, lambda: selective_scan_bwd_ref(*args), iters=1,
+                 warmup=0))
+    del args, fwd, y, hf, ckpt, yr, hr, want, x, delta, a, bm, cm, dd, h
+    torch.cuda.empty_cache()
+    return results
 
 
 def main() -> int:

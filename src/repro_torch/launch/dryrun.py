@@ -6,13 +6,20 @@ and roofline terms (the PyTorch twin of ``repro/launch/dryrun.py``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm_3b \
         --shape train_4k [--multi-pod | --both-meshes]
 
-Not ported: the reference lowers and compiles each step with XLA on 512
-placeholder devices and reads the compiled program's ``memory_analysis``
+The reference lowers and compiles each step with XLA on 512 placeholder
+devices and reads the compiled program's ``memory_analysis``
 (``bytes_per_device``), ``cost_analysis`` (the ``hlo_*`` terms) and its
 collectives (``collective_bytes_from_hlo``).  An eager PyTorch step has no
 compiled SPMD program whose HLO could be read, so the per-device figures
-here are the analytic ones only: estimates from the plans, not
-measurements of any device.
+here are analytic: estimates from the plans, not measurements of any
+device.  The collective term is the port's counterpart of
+``collective_bytes_from_hlo``: ``collective_bytes`` counts, from the same
+plans, resolved specs and policy the sharded steps follow
+(``launch/steps.py``, ``models/partition.py``), the bytes each rank passes
+to each collective kind in one step, by ``launch/collectives.py``'s ring
+rules; a live step's tally equals it byte for byte
+(``tests/test_torch_tensor_parallel.py``).  It feeds ``roofline_terms``'s
+``coll_bytes``.
 """
 from __future__ import annotations
 
@@ -25,13 +32,15 @@ import numpy as np
 
 from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, InputShape,
                                       ModelConfig, get_config)
-from repro_torch.launch.mesh import make_production_mesh, mesh_view
-from repro_torch.launch.shardings import make_policy
-from repro_torch.launch.specs import decode_arg_plans
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import batch_axes, make_production_mesh, mesh_view
+from repro_torch.launch.shardings import axes_of, make_policy
+from repro_torch.launch.specs import batch_plan, decode_arg_plans
 from repro_torch.launch.steps import build_step
-from repro_torch.models.model import model_plan
+from repro_torch.models.model import ENCODER_LAYER, model_plan
 from repro_torch.models.params import (_axis_size, count_params, param_bytes,
-                                       plan_leaves, resolve_pspec, torch_dtype)
+                                       plan_leaves, pspecs_from_plan,
+                                       resolve_pspec, torch_dtype)
 
 # NVIDIA H100 SXM, per card (NVIDIA's H100 data sheet, dense rates): bf16
 # tensor-core peak, HBM3 bandwidth, and NVLink 4's 900 GB/s a card (both
@@ -198,6 +207,337 @@ def analytic_terms(cfg: ModelConfig, shape: InputShape, num_chips: int,
     }
 
 
+# ---------------------------------------------------------------------------
+# Collective bytes: the sharded steps' collectives, counted from the plans
+# ---------------------------------------------------------------------------
+
+class _Count:
+    """Bytes a rank passes by kind (``collectives``'s ring rules), each
+    event added ``times`` times."""
+
+    def __init__(self, sizes: Dict[str, int]):
+        self.sizes = sizes
+        self.bytes = {k: 0 for k in coll.KINDS}
+
+    def live(self, axes) -> tuple:
+        return tuple(a for a in axes if self.sizes.get(a, 1) > 1)
+
+    def ag(self, nbytes: int, axes, times: int = 1) -> None:
+        for a in reversed(self.live(axes)):
+            n = self.sizes[a]
+            self.bytes["all_gather"] += times * (n - 1) * nbytes
+            nbytes *= n
+
+    def rs(self, nbytes: int, axes, times: int = 1) -> None:
+        """``nbytes``: the whole input."""
+        for a in self.live(axes):
+            n = self.sizes[a]
+            nbytes //= n
+            self.bytes["reduce_scatter"] += times * (n - 1) * nbytes
+
+    def ar(self, numel: int, itemsize: int, axes, times: int = 1) -> None:
+        for a in self.live(axes):
+            self.bytes["all_reduce"] += times * coll.ring_all_reduce_bytes(
+                numel, itemsize, self.sizes[a])
+
+
+def _split(spec, dim: int, sizes) -> bool:
+    """Whether dim ``dim`` of a resolved spec is split over ``model``."""
+    return (dim < len(spec) and "model" in axes_of(spec[dim])
+            and sizes.get("model", 1) > 1)
+
+
+def _live_axes(entry, sizes) -> tuple:
+    return tuple(a for a in axes_of(entry) if sizes.get(a, 1) > 1)
+
+
+class _StepCount:
+    """One step's collectives, walked as the model functions make them:
+    ``fwd`` times in the forward (2 for a remat-checkpointed layer, whose
+    recompute makes them again) and ``bwd`` times in the backward."""
+
+    def __init__(self, cfg: ModelConfig, shape: InputShape, mesh, remat,
+                 plan=None):
+        view = mesh_view(mesh)
+        self.cfg, self.shape = cfg, shape
+        self.sizes = dict(view.shape)
+        self.c = _Count(self.sizes)
+        self.m = self.sizes.get("model", 1)
+        self.batch = batch_axes(view)
+        self.isz = torch_dtype(cfg.dtype).itemsize
+        self.train = shape.mode == "train"
+        self.remat = remat
+        self.plan = plan if plan is not None else model_plan(cfg)
+        self.specs = pspecs_from_plan(self.plan, view)
+        bspec = pspecs_from_plan(batch_plan(cfg, shape, view), view)
+        if shape.mode == "decode":
+            cplan, tplan, _ = decode_arg_plans(cfg, shape, view)
+            self.cspecs = pspecs_from_plan(cplan, view)
+            bspec = {"tokens": pspecs_from_plan(tplan, view)}
+        tok = bspec["tokens"]
+        self.rows = _live_axes(tok[0] if tok else None, self.sizes)
+        self.nr = int(np.prod([self.sizes[a] for a in self.rows]))
+        self.b = shape.global_batch // self.nr
+        self.policy = make_policy(cfg, shape, view)
+
+    # ---- pieces
+    def f(self, numel, bwd):
+        """Megatron's f: an all-reduce over ``model`` in the backward."""
+        if self.train:
+            self.c.ar(numel, self.isz, ("model",), bwd)
+
+    def g(self, numel, fwd):
+        """Megatron's g: an all-reduce over ``model`` in the forward."""
+        self.c.ar(numel, self.isz, ("model",), fwd)
+
+    def gather(self, tree, specs, fwd, bwd, stacked=False):
+        """Parameters gathered at use over their batch-axis dims."""
+        if isinstance(tree, dict):
+            for k in tree:
+                self.gather(tree[k], specs[k], fwd, bwd, stacked)
+            return
+        p, spec = tree, specs
+        shape, spec = ((p.shape[1:], spec[1:]) if stacked
+                       else (p.shape, spec))
+        ext = [int(np.prod([self.sizes[a] for a in _live_axes(e, self.sizes)]
+                           or [1])) for e in spec]
+        ext += [1] * (len(shape) - len(ext))
+        nbytes = int(np.prod([d // x for d, x in zip(shape, ext)])) \
+            * torch_dtype(p.dtype).itemsize
+        done = []
+        for e in spec:
+            axes = _live_axes(e, self.sizes)
+            if not axes or any(a not in self.batch for a in axes):
+                continue
+            self.c.ag(nbytes, axes, fwd)
+            nbytes *= int(np.prod([self.sizes[a] for a in axes]))
+            done.append(axes)
+        if self.train:
+            for axes in reversed(done):
+                self.c.rs(nbytes, axes, bwd)
+                nbytes //= int(np.prod([self.sizes[a] for a in axes]))
+
+    def attention(self, specs, cspec, s, fwd, bwd, *, memory_len=0,
+                  decode=False, cross=False):
+        a, cfg = self.cfg.attn, self.cfg
+        b, d = self.b, cfg.d_model
+        if a.kind == "mla" and not cross:
+            split = _split(specs["wq_b"], 1, self.sizes)
+        else:
+            split = _split(specs["wq"], 1, self.sizes)
+        hl = a.num_heads // self.m if split else a.num_heads
+        if not decode:
+            if split:
+                if a.kind == "mla" and not cross:
+                    self.f(b * s * a.q_lora_rank, bwd)
+                    self.f(b * s * a.kv_lora_rank, bwd)
+                    self.f(b * s * a.rope_head_dim, bwd)
+                else:
+                    kv_split = _split(specs["wk"], 1, self.sizes)
+                    if cross:
+                        if kv_split:
+                            self.f(b * memory_len * d, bwd)
+                        else:
+                            self.f(b * memory_len * a.num_kv_heads
+                                   * a.head_dim, 2 * bwd)
+                        self.f(b * s * d, bwd)
+                    else:
+                        self.f(b * s * d, bwd)
+                        if not kv_split:
+                            self.f(b * s * a.num_kv_heads * a.head_dim,
+                                   2 * bwd)
+                self.g(b * s * d, fwd)
+            return
+        # decode against the stored cache
+        key = "ck" if cross else ("ckv" if a.kind == "mla" else "k")
+        seq = _live_axes(cspec[key][1], self.sizes)
+        every = split and "model" in seq
+        hq = a.num_heads if (every or not split) else hl
+        if every:
+            if a.kind == "mla" and not cross:
+                self.c.ag(b * hl * a.kv_lora_rank * self.isz, ("model",))
+                self.c.ag(b * hl * a.rope_head_dim * self.isz, ("model",))
+            else:
+                self.c.ag(b * hl * a.head_dim * self.isz, ("model",))
+        if seq:
+            width = (a.kv_lora_rank if a.kind == "mla" and not cross
+                     else a.head_dim)
+            self.c.ar(b * hq, 4, seq)
+            self.c.ar(b * hq * (width + 1), 4, seq)
+        if split:
+            self.g(b * d, 1)
+
+    def ffn(self, layer, specs, s, fwd, bwd):
+        cfg = self.cfg
+        b, d = self.b, cfg.d_model
+        if layer.ffn == "dense":
+            if _split(specs["ffn"]["w_in"], 2, self.sizes):
+                self.f(b * s * d, bwd)
+                self.g(b * s * d, fwd)
+        elif layer.ffn == "moe":
+            self.moe(cfg.ffn_spec_for(layer), specs["moe"], s, fwd, bwd)
+
+    def moe(self, spec, specs, s, fwd, bwd):
+        b, d, isz = self.b, self.cfg.d_model, self.isz
+        own = b * s
+        t = own * self.nr
+        self.c.ag(own * d * isz, self.rows, fwd)     # the rows, for routing
+        if self.train:
+            self.c.rs(t * d * isz, self.rows, bwd)
+        ep = _split(specs["wi"], 0, self.sizes)
+        tp = not ep and _split(specs["wi"], 3, self.sizes)
+        if ep or tp:
+            self.f(t * d, bwd)                  # the tokens of the block
+            self.f(t * spec.top_k, bwd)         # the gates
+        self.c.rs(t * d * isz, self.rows, fwd)       # the shares, summed
+        if self.train:
+            self.c.ag(own * d * isz, self.rows, bwd)
+        if ep or tp:
+            self.g(own * d, fwd)
+        if spec.num_shared_experts and _split(specs["shared_wi"], 2,
+                                              self.sizes):
+            self.f(own * d, bwd)
+            self.g(own * d, fwd)
+
+    def mamba(self, specs, s, fwd, bwd):
+        cfg = self.cfg
+        b, d = self.b, cfg.d_model
+        if not _split(specs["in_proj"], 2, self.sizes):
+            return
+        dt_rank = cfg.mamba.dt_rank or -(-d // 16)
+        width = dt_rank + 2 * cfg.mamba.d_state
+        self.f(b * s * d, bwd)
+        self.g(b * s * width, fwd)
+        self.f(b * s * width, bwd)
+        self.g(b * s * d, fwd)
+
+    def rwkv(self, specs, s, fwd, bwd):
+        cfg = self.cfg
+        b, d = self.b, cfg.d_model
+        if _split(specs["wr"], 1, self.sizes):
+            for _ in range(4):                       # xr, xk, xv, xg
+                self.f(b * s * d, bwd)
+            self.f(b * s * cfg.rwkv.decay_lora, bwd)
+            if self.train:                           # ln_x's slice
+                self.c.ag(d // self.m * 4, ("model",), bwd)
+            self.g(b * s * d, fwd)
+        if _split(specs["cm_wr"], 1, self.sizes):
+            self.f(b * s * d, bwd)
+            self.c.ag(b * s * (d // self.m) * self.isz, ("model",), fwd)
+        if _split(specs["cm_wk"], 1, self.sizes):
+            self.f(b * s * d, bwd)
+            self.g(b * s * d, fwd)
+
+    def layer(self, layer, specs, cspec, s, fwd, bwd, *, memory_len=0,
+              stacked=False, plan=None):
+        self.gather(plan, specs, fwd, bwd, stacked)
+        if stacked:
+            specs = _strip(specs)
+            cspec = _strip(cspec) if cspec is not None else None
+        decode = self.shape.mode == "decode"
+        if layer.mixer == "attn":
+            self.attention(specs["attn"], cspec and cspec.get("self"), s,
+                           fwd, bwd, decode=decode)
+            if layer.cross_attn and (memory_len or decode):
+                self.attention(specs["cross"], cspec and cspec.get("cross"),
+                               s, fwd, bwd, memory_len=memory_len,
+                               decode=decode, cross=True)
+        elif layer.mixer == "mamba":
+            self.mamba(specs["mamba"], s, fwd, bwd)
+        else:
+            self.rwkv(specs["rwkv"], s, fwd, bwd)
+        self.ffn(layer, specs, s, fwd, bwd)
+
+    # ---- the step
+    def count(self) -> Dict[str, int]:
+        cfg, shape, plan, specs = self.cfg, self.shape, self.plan, self.specs
+        b, d, v = self.b, cfg.d_model, cfg.vocab_size
+        decode = shape.mode == "decode"
+        bwd = 1 if self.train else 0
+        nf = 2 if (self.train and self.remat) else 1
+        s_text, memory_len = shape.seq_len, 0
+        if decode:
+            s_text = 1
+        elif cfg.encoder is not None:
+            s_text = min(128, shape.seq_len) if shape.mode == "prefill" \
+                else shape.seq_len
+            memory_len = shape.seq_len
+        elif cfg.frontend.kind == "vision":
+            s_text = shape.seq_len - cfg.frontend.num_prefix
+        s = s_text + (cfg.frontend.num_prefix if cfg.frontend.kind == "vision"
+                      and not decode else 0)
+        if not decode and cfg.frontend.kind != "none":
+            self.gather(plan["frontend_proj"], specs["frontend_proj"], 1, bwd)
+        if not decode and cfg.encoder is not None:
+            for _ in range(cfg.encoder.num_layers):
+                self.layer(ENCODER_LAYER, specs["encoder"]["period"]["sub0"],
+                           None, memory_len, nf, bwd, stacked=True,
+                           plan=plan["encoder"]["period"]["sub0"])
+            self.gather(plan["encoder"]["final_norm"],
+                        specs["encoder"]["final_norm"], 1, bwd)
+        # the embedding, masked to this rank's vocabulary rows and summed
+        self.gather(plan["embed"], specs["embed"], 1, bwd)
+        if _split(specs["embed"], 0, self.sizes):
+            self.c.ar(b * s_text * d, torch_dtype(plan["embed"].dtype)
+                      .itemsize, ("model",))
+        cs = self.cspecs if decode else {}
+        for i, layer in enumerate(cfg.prefix):
+            key = f"layer{i}"
+            self.layer(layer, specs["prefix"][key],
+                       cs.get("prefix", {}).get(key), s, nf, bwd,
+                       memory_len=memory_len, plan=plan["prefix"][key])
+        for _ in range(cfg.repeats if cfg.period else 0):
+            for i, layer in enumerate(cfg.period):
+                sub = f"sub{i}"
+                self.layer(layer, specs["period"][sub],
+                           cs.get("period", {}).get(sub), s, nf, bwd,
+                           memory_len=memory_len, stacked=True,
+                           plan=plan["period"][sub])
+        self.gather(plan["final_norm"], specs["final_norm"], 1, bwd)
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        self.gather(plan[head], specs[head], 1, bwd)
+        vsplit = _split(specs[head], 0 if cfg.tie_embeddings else 1,
+                        self.sizes)
+        rows = b * s_text
+        if vsplit and self.train:
+            self.f(rows * d, bwd)
+            self.c.ar(rows, 4, ("model",))           # the row max
+            self.c.ar(rows, 4, ("model",))           # the exponential sum
+            self.c.ar(rows, 4, ("model",))           # the target's logit
+        elif vsplit:
+            self.c.ag(b * (v // self.m) * 4, ("model",))
+        if self.train:
+            view_axes = tuple(self.sizes)
+            for p, spec in zip(plan_leaves(plan), plan_leaves(specs)):
+                named = {a for e in spec for a in axes_of(e)}
+                missing = tuple(a for a in self.batch if a not in named)
+                n = int(np.prod([dd // int(np.prod(
+                    [self.sizes[a] for a in _live_axes(e, self.sizes)]
+                    or [1])) for dd, e in zip(
+                        p.shape, tuple(spec) + (None,) * len(p.shape))]))
+                self.c.ar(n, torch_dtype(p.dtype).itemsize, missing)
+            self.c.ar(1, 4, self.rows)               # the loss
+            self.c.ar(1, 4, view_axes)               # the clip's norm
+        return dict(self.c.bytes)
+
+
+def _strip(specs):
+    """Per-repeat specs of stacked leaves (the stack's axis dropped)."""
+    if isinstance(specs, dict):
+        return {k: _strip(v) for k, v in specs.items()}
+    return specs[1:]
+
+
+def collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
+                     remat: bool = True, plan=None) -> Dict[str, int]:
+    """Bytes each rank passes to each collective kind in one step of
+    ``launch/steps.py::build_step(cfg, shape, mesh, remat=remat)``, by
+    ``launch/collectives.py``'s ring rules (every rank passes as many).
+    ``plan``: the parameters' plan, if they are stored in other dtypes
+    than ``model_plan(cfg)``'s."""
+    return _StepCount(cfg, shape, mesh, remat, plan).count()
+
+
 def _arg_leaves(tree):
     """Leaves of ``build_step``'s args or placements (a placements leaf is
     a list, one entry a mesh dim)."""
@@ -242,6 +582,9 @@ def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     _, args, placements, _, _ = build_step(cfg, shape, mesh,
                                            policy_override=policy_override)
     leaves = _check_whole_shards(args, placements, mesh)
+    comm = collective_bytes(cfg, shape, mesh)
+    terms = analytic_terms(cfg, shape, num_chips,
+                           q_chunk=int(os.environ.get("REPRO_Q_CHUNK", "512")))
     result = {
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
         "num_chips": num_chips, "mode": shape.mode,
@@ -249,17 +592,27 @@ def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         "arg_leaves": leaves,
         "analytic_memory": analytic_memory(cfg, shape, mesh,
                                            policy=policy_override),
-        **analytic_terms(cfg, shape, num_chips,
-                         q_chunk=int(os.environ.get("REPRO_Q_CHUNK", "512"))),
+        **terms,
+        # per rank, by kind; the roofline's term takes every rank's bytes
+        "collective_bytes_per_device": comm,
+        **{k + "_analytic": v for k, v in roofline_terms(
+            {"flops": terms["flops_analytic"],
+             "bytes accessed": terms["hbm_bytes_analytic"]},
+            float(sum(comm.values())) * num_chips, num_chips).items()
+           if k in ("collective_bytes", "t_collective")},
     }
     if verbose:
         agb = result["analytic_memory"]["total"] / 2**30
-        dom = max(("t_compute_analytic", "t_memory_analytic"),
-                  key=lambda k: result[k])
+        dom = max(("t_compute_analytic", "t_memory_analytic",
+                   "t_collective_analytic"), key=lambda k: result[k])
+        gib = {k: v / 2**30 for k, v in comm.items()}
         print(f"{arch:24s} {shape_name:12s} chips={num_chips:3d} "
               f"(H100 analytic est {agb:6.2f}GiB/dev) "
               f"Tc={result['t_compute_analytic']*1e3:8.3f}ms "
-              f"Tm={result['t_memory_analytic']*1e3:8.3f}ms dom={dom}")
+              f"Tm={result['t_memory_analytic']*1e3:8.3f}ms "
+              f"Tcoll={result['t_collective_analytic']*1e3:8.3f}ms "
+              f"dom={dom} coll GiB/dev ag={gib['all_gather']:.3f} "
+              f"rs={gib['reduce_scatter']:.3f} ar={gib['all_reduce']:.3f}")
     return result
 
 

@@ -14,9 +14,8 @@ slice JAX's layout gives its rank: a dimension whose entry names several
 axes (``("pod","data")``) is split major axis first, so the rank at
 coordinates (p, d) holds block ``p * |data| + d``.  ``local_shard`` cuts
 that block; ``gather`` rebuilds the whole tensor from the blocks with one
-``all_gather`` an axis (minor axis first, so the blocks nest in order);
-``reshard`` moves a local shard from one spec to another.  ``placements``
-gives the same layout as DTensor placements.
+``all_gather`` an axis (minor axis first, so the blocks nest in order).
+``placements`` gives the same layout as DTensor placements.
 """
 from __future__ import annotations
 
@@ -155,38 +154,16 @@ def local_shard(full: torch.Tensor, spec, mesh) -> torch.Tensor:
     return out if out is full else out.contiguous()
 
 
-def _gather_dim(t: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
-    import torch.distributed as dist
-    shape = mesh_view(mesh).shape
-    for axis in reversed(tuple(axes)):       # minor axis first
-        if shape[axis] == 1:
-            continue
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(shape[axis])]
-        dist.all_gather(parts, t, group=axis_group(mesh, axis))
-        t = torch.cat(parts, dim=dim)
-    return t
-
-
-def reshard(local: torch.Tensor, src, dst, mesh) -> torch.Tensor:
-    """A shard under the resolved spec ``src`` as this rank's shard under
-    ``dst`` (same rank): each dim whose entries differ is gathered over
-    ``src``'s axes and cut over ``dst``'s."""
-    rank = local.dim()
-    src = tuple(src) + (None,) * (rank - len(src))
-    dst = tuple(dst) + (None,) * (rank - len(dst))
-    out = local
-    for dim in range(rank):
-        if axes_of(src[dim]) != axes_of(dst[dim]):
-            out = _gather_dim(out, dim, axes_of(src[dim]), mesh)
-    keep = tuple(d if axes_of(s) != axes_of(d) else None
-                 for s, d in zip(src, dst))
-    return local_shard(out, keep, mesh)
-
-
 def gather(local: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """The whole tensor from every rank's shard under ``spec``."""
-    return reshard(local, spec, (), mesh)
+    """The whole tensor from every rank's shard under ``spec``: one
+    all-gather an axis of each sharded dim (``collectives.all_gather``,
+    minor axis first, so the blocks nest in order)."""
+    from repro_torch.launch import collectives
+    out = local
+    for dim, entry in enumerate(spec):
+        groups = tuple(axis_group(mesh, a) for a in axes_of(entry))
+        out = collectives.all_gather(out, groups, dim)
+    return out
 
 
 def shard_tree(tree, specs, mesh):

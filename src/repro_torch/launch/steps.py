@@ -13,19 +13,29 @@ resolved spec.
 On a live ``DeviceMesh`` the functions run.  Every parameter, Adam moment
 and decode-cache leaf is stored as this rank's shard of its resolved spec
 (``shardings.local_shard``; ``shard_tree`` cuts a whole tree), and the
-batch's rows as ``batch_plan`` says.  ``train_step`` gathers the
-parameters whole at the start of the step (FSDP's "gathered at use"),
-runs ``train_loss`` on this rank's rows (MoE routing over every rank's
-rows, as the reference routes over the whole batch), sums the gradients
-over the batch axes and divides by their ranks (each rank's loss is the
-mean over its rows), cuts them to this rank's shards, takes the clip's
-global norm over the shards with every element counted once, and applies
-AdamW to the shards in place.  ``prefill_step`` and ``serve_step`` gather
-the parameters, run on this rank's rows with each cache leaf gathered
-over every axis but the batch's, and cut the cache back to its stored
-shard.  The collectives run between the model's pieces, never inside a
-kernel.  The model still holds the whole parameters at once and every
-rank of ``model`` computes the same rows.
+batch's rows as ``batch_plan`` says.  The model functions take a
+partition context (``models/partition.py::Part``: the mesh's groups, the
+step's ``ShardPolicy``, the resolved specs) and divide the work as the
+reference's policy does: each layer's parameters are gathered over the
+batch axes where the layer walk reaches it (a prefix layer or a period
+repeat at a time; under remat the backward's recompute gathers the
+repeat again) and the gather's backward reduce-scatters each gradient to
+this rank's shard; dims split over ``model`` are computed locally
+(attention heads, FFN columns, Mamba channels, RWKV-6 heads, vocabulary
+blocks, MoE expert blocks) and their partial sums meet in collectives
+(``launch/collectives.py``, which tallies the bytes).
+
+``train_step`` runs ``train_loss`` on this rank's rows (MoE routing over
+every rank's rows, as the reference routes over the whole batch), sums
+over the batch axes the gradients of the leaves their spec does not
+shard there, divides every gradient by the batch ranks (each rank's loss
+is the mean over its rows), takes the clip's global norm over the shards
+with every element counted once, and applies AdamW to the shards in
+place.  ``prefill_step`` runs ``prefill`` on this rank's rows and cuts
+each cache leaf it made whole along a split dim (the sequence) to the
+stored shard; ``serve_step`` runs ``decode_step`` on the stored shards of
+the cache, in place, and gathers none of them.  The collectives run
+between the model's pieces, never inside a kernel.
 """
 from __future__ import annotations
 
@@ -35,15 +45,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import batch_axes, is_live, mesh_view
-from repro_torch.launch.shardings import (axis_group, zip_map, axes_of,
-                                          gather_tree, local_shard, reshard,
-                                          spec_tree_placements)
+from repro_torch.launch.shardings import (axis_group, axes_of, make_policy,
+                                          spec_tree_placements, zip_map)
 from repro_torch.launch.specs import batch_plan, decode_arg_plans
 from repro_torch.models.model import (decode_step, model_plan, prefill,
                                       train_loss)
 from repro_torch.models.params import (map_plan, plan_leaves, pspecs_from_plan,
                                        specs_from_plan)
+from repro_torch.models.partition import make_part
 from repro_torch.training import optimizer as opt
 from repro_torch.training.trainer import _unflatten, grads_of
 
@@ -55,24 +66,23 @@ def _require_live(mesh) -> None:
                         "plans only")
 
 
-def batch_groups(mesh) -> tuple:
-    """Process groups of the batch axes of more than one rank, major
-    first."""
-    shape = mesh_view(mesh).shape
-    return tuple(axis_group(mesh, a) for a in batch_axes(mesh)
-                 if shape[a] > 1)
-
-
 def _batch_ranks(mesh) -> int:
     shape = mesh_view(mesh).shape
     return int(np.prod([shape[a] for a in batch_axes(mesh)]))
 
 
-def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
-    import torch.distributed as dist
-    for g in groups:
-        dist.all_reduce(t, group=g)
-    return t
+def row_axes(plan_spec) -> tuple:
+    """The batch axes a batch leaf's resolved spec splits its rows over."""
+    return axes_of(plan_spec[0]) if plan_spec else ()
+
+
+def unsharded_batch_axes(spec, mesh) -> tuple:
+    """The batch axes (of more than one rank) a parameter's resolved spec
+    does not shard it over: its gradient is summed over them."""
+    shape = mesh_view(mesh).shape
+    named = {a for e in spec for a in axes_of(e)}
+    return tuple(a for a in batch_axes(mesh)
+                 if shape[a] > 1 and a not in named)
 
 
 def _replicas(spec, mesh) -> int:
@@ -94,16 +104,25 @@ def sharded_norm(grads, specs, mesh) -> torch.Tensor:
             sq = sq / rep
         total = sq if total is None else total + sq
     names = mesh_view(mesh).axis_names
-    _all_reduce(total, [axis_group(mesh, a) for a in names
-                        if mesh_view(mesh).shape[a] > 1])
+    coll.all_reduce(total, [axis_group(mesh, a) for a in names
+                            if mesh_view(mesh).shape[a] > 1])
     return torch.sqrt(total)
 
 
-def _step_spec(spec, batch_entry):
-    """A stored cache spec as the step uses it: sharded over the batch's
-    axes only."""
-    return tuple(e if batch_entry is not None and e == batch_entry else None
-                 for e in spec)
+def _cut(t: torch.Tensor, leaf, spec, part) -> torch.Tensor:
+    """A cache leaf the prefill made whole along a dim its stored spec
+    splits (the sequence; the batch's rows and split heads or channels
+    come out local), cut to this rank's stored shard."""
+    out = t
+    for dim, (full, entry) in enumerate(zip(leaf.shape, spec)):
+        index, n = part.block(entry)
+        if n == 1 or out.shape[dim] == full // n:
+            continue
+        if out.shape[dim] != full:
+            raise ValueError(f"cache dim {dim} is {out.shape[dim]}: neither "
+                             f"{full} nor its shard {full // n}")
+        out = out.narrow(dim, index * (full // n), full // n)
+    return out if out is t else out.contiguous()
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
@@ -113,19 +132,19 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
     """``on_grads``, if given, is called by the train step with ``(params,
     grads)``, this rank's shards, between the gradients' reduction and the
     optimizer (as ``trainer.make_train_step``'s)."""
-    # the reference's policy constrains activations inside its jitted
-    # step; the port's eager functions take none (``policy_override`` is
-    # kept for the reference's signature), and the caches' specs come
-    # from ``decode_arg_plans``'s policy, as the reference's do
+    # the model functions follow ``make_policy``'s policy, and the caches'
+    # specs come from ``decode_arg_plans``'s, as the reference's do
+    # (``policy_override`` is kept for the reference's signature)
     del policy_override
     pplan = model_plan(cfg)
     p_specs = pspecs_from_plan(pplan, mesh)
     p_args = specs_from_plan(pplan)
     p_place = spec_tree_placements(p_specs, mesh)
+    policy = make_policy(cfg, shape, mesh)
 
-    def gathered(params):
-        with torch.no_grad():
-            return gather_tree(params, p_specs, mesh)
+    def part_for(rows_spec, cache_specs=None):
+        return make_part(mesh, policy, p_specs, rows=row_axes(rows_spec),
+                         cache_specs=cache_specs)
 
     if shape.mode == "train":
         ocfg = ocfg or opt.AdamWConfig()
@@ -139,27 +158,28 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
 
         def train_step(params, opt_state, batch):
             _require_live(mesh)
-            groups, n = batch_groups(mesh), _batch_ranks(mesh)
-            full = map_plan(lambda t: t.detach().requires_grad_(True),
-                            gathered(params))
-            loss = train_loss(full, cfg, batch, remat=remat,
-                              batch_groups=groups)
-            grads = plan_leaves(grads_of(loss, full))
-            del full
+            part = part_for(b_specs["tokens"])
+            groups, n = part.row_groups, _batch_ranks(mesh)
+            local = map_plan(lambda t: t.detach().requires_grad_(True),
+                             params)
+            loss = train_loss(local, cfg, batch, remat=remat, part=part)
+            grads = plan_leaves(grads_of(loss, local))
+            del local
             with torch.no_grad():
                 specs = plan_leaves(p_specs)
                 for i, spec in enumerate(specs):
-                    g = _all_reduce(grads[i], groups)
+                    g = coll.all_reduce(grads[i], part.groups_of(
+                        unsharded_batch_axes(spec, mesh)))
                     if n > 1:
                         g = g.div_(n)
-                    grads[i] = local_shard(g, spec, mesh)
+                    grads[i] = g
                 grads = _unflatten(params, grads)
                 if on_grads is not None:
                     on_grads(params, grads)
                 gnorm = sharded_norm(grads, p_specs, mesh)
                 params2, opt2, diag = opt.apply_updates(
                     ocfg, params, grads, opt_state, gnorm=gnorm)
-                loss = _all_reduce(loss.detach(), groups)
+                loss = coll.all_reduce(loss.detach(), groups)
                 if n > 1:
                     loss = loss / n
             return params2, opt2, {"loss": loss, **diag}
@@ -173,25 +193,24 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
     c_specs = pspecs_from_plan(cplan, mesh)
     c_place = spec_tree_placements(c_specs, mesh)
     tok_spec = pspecs_from_plan(tplan, mesh)
-    entry = tok_spec[0] if tok_spec else None
-    # (stored spec, the step's spec) of every cache leaf
-    c_pairs = map_plan(lambda s: (s, _step_spec(s, entry)), c_specs)
-
-    def cut_cache(cache):
-        return zip_map(lambda t, s: reshard(t, s[1], s[0], mesh), cache,
-                        c_pairs)
+    # (plan leaf, stored spec) of every cache leaf
+    c_leaves = zip_map(lambda p, s: (p, s), cplan, c_specs)
 
     if shape.mode == "prefill":
         bplan = batch_plan(cfg, shape, mesh)
+        tokens_spec = pspecs_from_plan(bplan, mesh)["tokens"]
 
         def prefill_step(params, batch):
             _require_live(mesh)
+            part = part_for(tokens_spec)
             logits, cache = prefill(
-                gathered(params), cfg, batch["tokens"],
+                params, cfg, batch["tokens"],
                 embeds=batch.get("embeds"), frames=batch.get("frames"),
-                seq_cap=shape.seq_len, batch_groups=batch_groups(mesh))
+                seq_cap=shape.seq_len, part=part)
             with torch.no_grad():
-                return logits, cut_cache(cache)
+                return logits, zip_map(
+                    lambda t, ps: _cut(t, ps[0], ps[1], part), cache,
+                    c_leaves)
 
         args = (p_args, specs_from_plan(bplan))
         in_pl = (p_place, spec_tree_placements(
@@ -201,11 +220,9 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
     def serve_step(params, cache, token, positions):
         _require_live(mesh)
         with torch.no_grad():
-            step_cache = zip_map(
-                lambda t, s: reshard(t, s[0], s[1], mesh), cache, c_pairs)
-            logits = decode_step(gathered(params), cfg, step_cache, token,
-                                 positions, batch_groups=batch_groups(mesh))
-            return logits, cut_cache(step_cache)
+            logits = decode_step(params, cfg, cache, token, positions,
+                                 part=part_for(tok_spec, c_specs))
+            return logits, cache
 
     args = (p_args, specs_from_plan(cplan), specs_from_plan(tplan),
             specs_from_plan(qplan))

@@ -13,12 +13,20 @@ Pallas kernel).  DeepSeek-V2 shared experts run densely on every token.
 
 Routing is global in the reference: the capacity, the load-balance
 loss's means and the dispatch ranks are taken over the whole batch's
-tokens.  A step whose batch rows lie on several ranks passes the process
-groups of its batch axes (``batch_groups``, major first): the rows are
-gathered from every rank before routing, in the order of the global
-batch, and each rank keeps its own rows of the output; the gather's
-backward sums the cotangent over the ranks, so each rank's rows get
-every rank's share of the gradient.  Without groups nothing is gathered.
+tokens.  On a sharded step (``part``, ``models/partition.py``) every rank
+gathers the rows of every row rank (in the order of the global batch;
+the gather's backward reduce-scatters the cotangent back to each rank's
+rows) and routes them all alike.  The ``[E, C, d]`` buffer is then split
+as the policy's ``moe_buf`` says: experts over ``model`` where the
+experts' leaves are split so (else each expert's ``d_ff`` is split over
+``model``, tensor-parallel within the expert, as the leaves' ``alt``
+says), capacity slots over the batch axes (padded to a multiple of their
+ranks with the sentinel's zero row).  Each rank computes only its block
+and combines, for every token, the share of its output that the block
+holds; the shares meet in a reduce-scatter over the batch axes, which
+brings each token's output back to the rank that owns its row, and a sum
+over ``model``.  Shared experts run column- then row-parallel on the
+rank's own rows.  Without ``part`` nothing is gathered.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import FFNSpec, ModelConfig
+from repro_torch.launch import collectives as coll
 from repro_torch.models.common import act_fn, einsum
 from repro_torch.models.params import P
 
@@ -65,53 +74,116 @@ def route(params, tokens, spec: FFNSpec):
     return probs, gates, idx
 
 
-def _rank_index(groups) -> int:
-    """This rank's place among the ranks of ``groups`` (major first)."""
-    import torch.distributed as dist
-    index = 0
-    for g in groups:
-        index = index * dist.get_world_size(g) + dist.get_rank(g)
-    return index
+def _experts(buf, wi, wo, activation: str, block):
+    """The gated expert MLPs on buffer ``buf`` [E', C', d]: ``block``
+    names the part of the ``[E, C, d]`` buffer (experts, slots) and of
+    each expert's ``d_ff`` that ``buf``, ``wi`` and ``wo`` hold, as
+    ``((e0, e1), (c0, c1), (f0, f1))``."""
+    (e0, e1), (c0, c1), (f0, f1) = block
+    if buf.shape[:2] != (e1 - e0, c1 - c0) or wi.shape[-1] != f1 - f0:
+        raise ValueError(f"buffer {tuple(buf.shape)} is not block {block}")
+    gu = einsum("ecd,edgf->ecgf", buf, wi)
+    h = act_fn(activation)(gu[..., 0, :]) * gu[..., 1, :]
+    return einsum("ecf,efd->ecd", h, wo)
 
 
-class _GatherRows(torch.autograd.Function):
-    """Rows [T, d] of every rank of ``groups`` (major first), in the
-    mixed-radix order of the ranks' group ranks; backward: the cotangent
-    summed over the ranks, this rank's rows."""
+def _dispatch(tokens, params, spec: FFNSpec):
+    """Routing and the permutation dispatch over tokens [T, d]:
+    (aux, gates [T,k], tok_for_slot [E, cap] (T = empty), the (token,
+    choice) pairs' experts [T*k], slots [T*k] and kept flags [T*k],
+    cap)."""
+    t = tokens.shape[0]
+    k = spec.top_k
+    e = spec.num_experts
+    dev = tokens.device
+    probs, gates, idx = route(params, tokens, spec)
+    me = probs.mean(dim=0)                                          # [E]
+    ce = F.one_hot(idx[:, 0], e).float().mean(dim=0)
+    aux = spec.router_aux_coef * e * torch.sum(me * ce)
+    expert_ids = idx.reshape(-1)                     # [T*k]
+    order = torch.argsort(expert_ids, stable=True)   # sorted (token, choice)
+    sorted_eids = expert_ids[order]
+    first = torch.searchsorted(sorted_eids, sorted_eids, side="left")
+    slot = torch.arange(t * k, device=dev) - first
+    cap = _capacity(t, spec)
+    keep = slot < cap
+    src_tok = order // k
+    safe_slot = torch.where(keep, slot, torch.zeros_like(slot))
+    drop_slot = torch.where(keep, slot, torch.full_like(slot, cap))
+    tok_for_slot = torch.full((e, cap + 1), t, dtype=torch.long, device=dev)
+    tok_for_slot[sorted_eids, drop_slot] = src_tok
+    slot_unsorted = torch.zeros_like(slot)
+    slot_unsorted[order] = safe_slot
+    keep_unsorted = torch.zeros_like(keep)
+    keep_unsorted[order] = keep
+    return (aux, gates, tok_for_slot[:, :cap], expert_ids, slot_unsorted,
+            keep_unsorted, cap)
 
-    @staticmethod
-    def forward(ctx, x, groups):
-        import torch.distributed as dist
-        ctx.groups, ctx.rows = groups, x.shape[0]
-        ctx.index = _rank_index(groups)
-        out = x.contiguous()
-        for g in reversed(groups):       # minor first: blocks nest in order
-            parts = [torch.empty_like(out)
-                     for _ in range(dist.get_world_size(g))]
-            dist.all_gather(parts, out, group=g)
-            out = torch.cat(parts)
-        return out
 
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-        grad = grad.contiguous().clone()
-        for g in ctx.groups:
-            dist.all_reduce(grad, group=g)
-        lo = ctx.index * ctx.rows
-        return grad[lo: lo + ctx.rows], None
+def _moe_part(params, x, spec: FFNSpec, part):
+    """``moe_ffn`` on a sharded step: global routing, this rank's block of
+    the buffer, each token's share of it summed back to the token's
+    rank."""
+    b, s, d = x.shape
+    own_tokens = x.reshape(-1, d)
+    own = own_tokens.shape[0]
+    tokens = part.gather_rows(own_tokens)            # [T, d], every rank's
+    t, k, e = tokens.shape[0], spec.top_k, spec.num_experts
+    aux, gates, tfs, eids, slot, keep, cap = _dispatch(tokens, params, spec)
+    wi, wo = params["wi"], params["wo"]
+    ep = wi.shape[0] != e                            # experts over `model`
+    tp = not ep and wi.shape[3] != spec.d_ff         # d_ff over `model`
+    slots = part.live(part.policy.moe_buf[1] if part.policy.moe_buf
+                      else None)
+    if slots != part.rows:
+        raise ValueError(f"capacity slots over {slots}, rows over "
+                         f"{part.rows}: the combine needs them alike")
+    ci, nc = part.block(slots)
+    cb = -(-cap // nc)
+    if cb * nc > cap:                                # pad with the sentinel
+        tfs = torch.cat([tfs, tfs.new_full((e, cb * nc - cap), t)], dim=1)
+    el, fl = wi.shape[0], wi.shape[3]
+    e0 = part.mi * el if ep else 0
+    f0 = part.mi * fl if tp else 0
+    c0 = ci * cb
+    tfs = tfs[e0: e0 + el, c0: c0 + cb]
+    src = part.f(tokens) if (ep or tp) else tokens
+    tokens_pad = torch.cat([src, src.new_zeros((1, d))], dim=0)
+    buf = tokens_pad[tfs].to(x.dtype)                         # [E', cb, d]
+    out_blk = _experts(buf, wi, wo, spec.activation,
+                       ((e0, e0 + el), (c0, c0 + cb), (f0, f0 + fl)))
+    # every token's share of this block's outputs
+    held = (keep & (eids >= e0) & (eids < e0 + el) & (slot >= c0)
+            & (slot < c0 + cb))
+    local = ((eids - e0).clamp(0, el - 1) * cb
+             + (slot - c0).clamp(0, cb - 1))
+    picked = out_blk.reshape(el * cb, d)[local]
+    picked = picked * held[:, None].to(picked.dtype)
+    g = gates.to(x.dtype)
+    if ep or tp:
+        g = part.f(g)
+    out = einsum("tkd,tk->td", picked.reshape(t, k, d), g)
+    out = coll.scatter_sum(out, part.row_groups, 0)   # this rank's rows
+    if ep or tp:
+        out = part.g(out)
+    if spec.num_shared_experts:
+        split = params["shared_wi"].shape[2] != (
+            spec.d_ff * spec.num_shared_experts)
+        xs = part.f(own_tokens) if split else own_tokens
+        gu_s = einsum("td,dgf->tgf", xs, params["shared_wi"])
+        hs = act_fn(spec.activation)(gu_s[:, 0]) * gu_s[:, 1]
+        shared = einsum("tf,fd->td", hs, params["shared_wo"])
+        out = out + (part.g(shared) if split else shared)
+    return out.reshape(b, s, d), aux
 
 
-def moe_ffn(params, x, spec: FFNSpec, cfg: ModelConfig, *,
-            batch_groups=()):
-    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar), routed over the
-    rows of every rank of ``batch_groups`` (this rank's alone when
-    empty)."""
+def moe_ffn(params, x, spec: FFNSpec, cfg: ModelConfig, *, part=None):
+    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar); with ``part``
+    routed over the rows of every row rank (``_moe_part``)."""
+    if part is not None:
+        return _moe_part(params, x, spec, part)
     b, s, d = x.shape
     tokens = x.reshape(-1, d)                        # [T, d]
-    own = tokens.shape[0]
-    if batch_groups:
-        tokens = _GatherRows.apply(tokens, tuple(batch_groups))
     t = tokens.shape[0]
     k = spec.top_k
     e = spec.num_experts
@@ -162,8 +234,4 @@ def moe_ffn(params, x, spec: FFNSpec, cfg: ModelConfig, *,
         gu_s = einsum("td,dgf->tgf", tokens, params["shared_wi"])
         hs = act_fn(spec.activation)(gu_s[:, 0]) * gu_s[:, 1]
         out = out + einsum("tf,fd->td", hs, params["shared_wo"])
-
-    if batch_groups:
-        lo = _rank_index(batch_groups) * own
-        out = out[lo: lo + own]
     return out.reshape(b, s, d), aux

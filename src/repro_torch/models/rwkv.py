@@ -12,6 +12,16 @@ card, its plain version on the CPU) in prefill (S = prompt) and decode
   shift_att [B, d], shift_ffn [B, d]   (previous token for token-shift)
   wkv       [B, H, hd, hd]             (float32)
 
+With a sharded step's ``part`` (``models/partition.py``) a layer whose
+heads are split over ``model`` runs on this rank's heads: ``wr``, ``wk``,
+``wv``, ``wg``, ``w_lora_b``, ``w0`` and ``u`` by heads (each replicated
+input enters through ``f``), the WKV scan and ``_group_norm`` on them with
+the matching slice of ``ln_x``, ``wo`` row-parallel and a sum; the
+channel-mix runs ``cm_wk`` column- and ``cm_wv`` row-parallel, and the
+receptance, split by ``cm_wr``'s columns, is gathered over ``model`` to
+gate the summed output (it is the smaller operand).  The token-shift
+states stay whole.
+
 One deliberate difference: the shift states take the model dtype, where
 the JAX plan fixes them at bfloat16.  For every bf16 config the two are the
 same; for a float32 config the JAX decode step refuses to write its f32
@@ -84,9 +94,21 @@ def _token_shift(x, prev, mu):
     return x + mu.to(x.dtype) * (shifted - x)
 
 
-def _rkvgw(params, x, prev, cfg):
-    """Project token-shifted inputs to r,k,v,g and decay w."""
-    heads, hd = _dims(cfg)
+def _split(params, key: str, whole: int, part):
+    """``part`` when ``params[key]``'s columns are split over ``model``."""
+    return part if part is not None and params[key].shape[1] != whole \
+        else None
+
+
+def _f(x, part):
+    return x if part is None else part.f(x)
+
+
+def _rkvgw(params, x, prev, cfg, part=None):
+    """Project token-shifted inputs to r,k,v,g and decay w (on this rank's
+    heads when ``part`` splits them)."""
+    _, hd = _dims(cfg)
+    heads = params["u"].shape[0]
     mu = params["mu"]
     xr = _token_shift(x, prev, mu[0])
     xk = _token_shift(x, prev, mu[1])
@@ -94,11 +116,11 @@ def _rkvgw(params, x, prev, cfg):
     xg = _token_shift(x, prev, mu[3])
     xw = _token_shift(x, prev, mu[4])
     b, s, _ = x.shape
-    r = _mm(xr, params["wr"]).reshape(b, s, heads, hd)
-    k = _mm(xk, params["wk"]).reshape(b, s, heads, hd)
-    v = _mm(xv, params["wv"]).reshape(b, s, heads, hd)
-    g = F.silu(_mm(xg, params["wg"]))
-    lora = _mm(_mm(xw, params["w_lora_a"]), params["w_lora_b"])
+    r = _mm(_f(xr, part), params["wr"]).reshape(b, s, heads, hd)
+    k = _mm(_f(xk, part), params["wk"]).reshape(b, s, heads, hd)
+    v = _mm(_f(xv, part), params["wv"]).reshape(b, s, heads, hd)
+    g = F.silu(_mm(_f(xg, part), params["wg"]))
+    lora = _mm(_f(_mm(xw, params["w_lora_a"]), part), params["w_lora_b"])
     w_log = params["w0"] + lora          # f32 + bf16 promotes to f32
     w = torch.exp(-torch.exp(w_log.float())).reshape(b, s, heads, hd)
     return r, k, v, g, w
@@ -115,27 +137,44 @@ def _group_norm(y, weight, heads, eps=1e-5):
 
 
 def rwkv_time_mix(params, x, state_shift, state_wkv, cfg: ModelConfig, *,
-                  impl: str = "auto"):
-    """x: [B,S,d].  Returns (out, (new_shift, new_wkv))."""
-    heads, hd = _dims(cfg)
-    r, k, v, g, w = _rkvgw(params, x, state_shift, cfg)
+                  impl: str = "auto", part=None):
+    """x: [B,S,d].  Returns (out, (new_shift, new_wkv)); with ``part`` the
+    WKV state holds this rank's heads when they are split."""
+    part = _split(params, "wr", cfg.d_model, part)
+    heads = params["u"].shape[0]
+    if part is not None and heads * _dims(cfg)[1] != params["wr"].shape[1]:
+        raise ValueError("the model axis splits RWKV-6's heads")
+    r, k, v, g, w = _rkvgw(params, x, state_shift, cfg, part)
     y, s_final = rwkv6_scan(r.float().contiguous(), k.float().contiguous(),
                             v.float().contiguous(), w.contiguous(),
                             params["u"].float().contiguous(),
                             state_wkv.contiguous(), impl=impl)
-    y = _group_norm(y, params["ln_x"], heads).to(x.dtype) * g
+    ln_x = params["ln_x"] if part is None else part.model_slice(
+        params["ln_x"], 0)
+    y = _group_norm(y, ln_x, heads).to(x.dtype) * g
     out = _mm(y, params["wo"])
+    if part is not None:
+        out = part.g(out)
     return out, (x[:, -1], s_final)
 
 
-def rwkv_channel_mix(params, x, state_shift):
-    """RWKV channel-mix FFN.  x: [B,S,d]."""
+def rwkv_channel_mix(params, x, state_shift, *, cfg=None, part=None):
+    """RWKV channel-mix FFN.  x: [B,S,d].  With ``part`` (and ``cfg``),
+    on this rank's columns where ``cm_wr`` / ``cm_wk`` are split."""
     mu = params["cm_mu"]
     xr = _token_shift(x, state_shift, mu[0])
     xk = _token_shift(x, state_shift, mu[1])
-    r = torch.sigmoid(_mm(xr, params["cm_wr"]))
-    kk = torch.square(F.relu(_mm(xk, params["cm_wk"])))
-    out = r * _mm(kk, params["cm_wv"])
+    pr = _split(params, "cm_wr", x.shape[-1], part)
+    pk = None if part is None else _split(params, "cm_wk", cfg.rwkv.d_ffn,
+                                          part)
+    r = torch.sigmoid(_mm(_f(xr, pr), params["cm_wr"]))
+    if pr is not None:
+        r = pr.gather_model(r, r.dim() - 1)
+    kk = torch.square(F.relu(_mm(_f(xk, pk), params["cm_wk"])))
+    o = _mm(kk, params["cm_wv"])
+    if pk is not None:
+        o = pk.g(o)
+    out = r * o
     return out, x[:, -1]
 
 

@@ -11,6 +11,14 @@ S = 1 from the cached state, written back IN PLACE.  State per layer:
   conv [B, d_inner, d_conv-1]  (depthwise conv tail)
   ssm  [B, d_inner, d_state]   (float32)
 
+With a sharded step's ``part`` (``models/partition.py``) a layer whose
+``d_inner`` is split over ``model`` runs on this rank's channels:
+``in_proj`` column-parallel, the conv, ``dt_proj``, ``dt_bias``,
+``A_log``, ``D`` and the scan on its ``d_inner / m`` channels; ``x_proj``
+contracts over ``d_inner``, so its ``dt | B | C`` output is summed over
+``model`` before use; ``out_proj`` row-parallel, then a sum; the conv and
+ssm states hold the rank's channels.
+
 One deliberate difference: the conv state takes the model dtype, where the
 JAX plan fixes it at bfloat16.  For every bf16 config the two are the
 same; for a float32 config the JAX decode step refuses to write its f32
@@ -67,12 +75,16 @@ def mamba_state_plan(cfg: ModelConfig, batch: int, *,
     }
 
 
-def _ssm_coeffs(params, xc, cfg: ModelConfig):
+def _ssm_coeffs(params, xc, cfg: ModelConfig, part=None):
     """xc: [B, S, d_inner] post-conv activations -> (delta [B,S,d_inner],
-    A [d_inner,N], B [B,S,N], C [B,S,N]), all f32 and contiguous."""
+    A [d_inner,N], B [B,S,N], C [B,S,N]), all f32 and contiguous.  With
+    ``part`` (``d_inner`` split) the partial ``x_proj`` products meet in a
+    sum and re-enter the split compute through ``f``."""
     m = cfg.mamba
     _, dt_rank = _dims(cfg)
     proj = einsum("bsd,dr->bsr", xc, params["x_proj"])
+    if part is not None:
+        proj = part.f(part.g(proj))
     dt = proj[..., :dt_rank]
     bmat = proj[..., dt_rank: dt_rank + m.d_state].float().contiguous()
     cmat = proj[..., dt_rank + m.d_state:].float().contiguous()
@@ -97,9 +109,14 @@ def _causal_conv(xpad, w, b):
 
 
 def mamba_prefill(params, x, cfg: ModelConfig, conv_init=None,
-                  ssm_init=None, *, impl: str = "auto"):
-    """x: [B,S,d].  Returns (out [B,S,d], state {conv, ssm} for decode)."""
+                  ssm_init=None, *, impl: str = "auto", part=None):
+    """x: [B,S,d].  Returns (out [B,S,d], state {conv, ssm} for decode);
+    with ``part`` on this rank's channels when ``d_inner`` is split."""
     m = cfg.mamba
+    if part is not None and params["in_proj"].shape[2] == _dims(cfg)[0]:
+        part = None                       # d_inner whole: computed whole
+    if part is not None:
+        x = part.f(x)
     xz = einsum("bsd,dci->bsci", x, params["in_proj"])
     xin, z = xz[..., 0, :], xz[..., 1, :]                    # [B,S,d_inner]
     pad = m.d_conv - 1
@@ -110,27 +127,30 @@ def mamba_prefill(params, x, cfg: ModelConfig, conv_init=None,
                            dtype=xin.dtype, device=xin.device)
     xpad = torch.cat([tail, xin], dim=1)                     # [B,S+pad,d_in]
     xc = F.silu(_causal_conv(xpad, params["conv_w"], params["conv_b"]))
-    delta, a, bmat, cmat = _ssm_coeffs(params, xc, cfg)
+    delta, a, bmat, cmat = _ssm_coeffs(params, xc, cfg, part)
     y, h_final = selective_scan(
         xc.contiguous(), delta, a, bmat, cmat,
         params["D"].float().contiguous(),
         None if ssm_init is None else ssm_init.contiguous(), impl=impl)
     y = y.to(x.dtype) * F.silu(z)
     out = einsum("bsd,do->bso", y, params["out_proj"])
+    if part is not None:
+        out = part.g(out)
     # conv tail: last (d_conv-1) inputs, shape [B, d_inner, d_conv-1]
     state = {"conv": xpad[:, -pad:].transpose(1, 2).contiguous(),
              "ssm": h_final}
     return out, state
 
 
-def mamba_decode(params, x, state, cfg: ModelConfig, *, impl: str = "auto"):
+def mamba_decode(params, x, state, cfg: ModelConfig, *, impl: str = "auto",
+                 part=None):
     """x: [B,1,d]; state: {conv [B,d_inner,pad], ssm [B,d_inner,n]}, this
     layer's slot-cache views, updated IN PLACE.  Returns out [B,1,d].
 
     One recurrent step is prefill at S = 1 from the cached state, so the
     scan kernel runs once per decode step over every slot."""
     out, new = mamba_prefill(params, x, cfg, conv_init=state["conv"],
-                             ssm_init=state["ssm"], impl=impl)
+                             ssm_init=state["ssm"], impl=impl, part=part)
     state["conv"].copy_(new["conv"])
     state["ssm"].copy_(new["ssm"])
     return out

@@ -129,9 +129,11 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params=None, *, max_slots: int = 8,
                  seq_cap: int = 256, page_size: int = 16, seed: int = 0,
                  backend: str = "dense", pool_pages: Optional[int] = None,
-                 chunk_tokens: Optional[int] = None, attn_impl: str = "auto",
+                 chunk_tokens: Optional[int] = None,
+                 step_tokens: Optional[int] = None, attn_impl: str = "auto",
                  kv_dtype: str = "auto", prefix_cache: bool = True,
-                 spec_k: int = 0, response_cache=None, device="cuda"):
+                 spec_k: int = 0, spec_ngram: int = 3, response_cache=None,
+                 device="cuda"):
         if backend not in ("dense", "paged"):
             raise ValueError(f"unknown backend {backend!r}")
         if kv_dtype != "auto" and backend == "dense":
@@ -184,9 +186,11 @@ class ServingEngine:
             self.runtime = PagedRuntime(
                 cfg, self.params, max_slots=max_slots, seq_cap=seq_cap,
                 page_size=page_size, pool_pages=pool_pages,
-                chunk_tokens=chunk_tokens, attn_impl=attn_impl,
-                kv_dtype=kv_dtype, prefix_cache=prefix_cache, spec_k=spec_k,
-                response_cache=self.response_cache, seed=seed,
+                chunk_tokens=chunk_tokens, step_tokens=step_tokens,
+                attn_impl=attn_impl, kv_dtype=kv_dtype,
+                prefix_cache=prefix_cache, spec_k=spec_k,
+                spec_ngram=spec_ngram, response_cache=self.response_cache,
+                seed=seed,
                 device=self.device)
             self.kv = self.runtime.kv
             # the scheduler's waiting deque doubles as the engine queue

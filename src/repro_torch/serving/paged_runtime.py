@@ -132,10 +132,11 @@ class PagedRuntime:
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
                  seq_cap: int = 256, page_size: int = 16,
                  pool_pages: Optional[int] = None,
-                 chunk_tokens: Optional[int] = None, attn_impl: str = "auto",
+                 chunk_tokens: Optional[int] = None,
+                 step_tokens: Optional[int] = None, attn_impl: str = "auto",
                  kv_dtype: str = "auto", prefix_cache: bool = True,
-                 spec_k: int = 0, response_cache=None, seed: int = 0,
-                 device="cuda"):
+                 spec_k: int = 0, spec_ngram: int = 3, response_cache=None,
+                 seed: int = 0, device="cuda"):
         refuse_unsupported(cfg)
         if kv_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
@@ -160,7 +161,9 @@ class PagedRuntime:
                                enable_prefix_cache=prefix_cache)
         self.sched = PagedScheduler(
             self.kv, SchedConfig(chunk_tokens=self.chunk,
-                                 max_active=max_slots, spec_k=spec_k),
+                                 max_active=max_slots,
+                                 step_tokens=step_tokens,
+                                 spec_k=spec_k, spec_ngram=spec_ngram),
             response_cache=response_cache)
         self.pools = self._init_pools()
         self._layers = self._layer_walk()

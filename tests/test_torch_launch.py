@@ -226,3 +226,67 @@ def test_window_clipping_reduces_analytic_compute():
     unclipped = t_dryrun.analytic_terms(cfg, T_SHAPES["prefill_32k"], 256,
                                         q_chunk=32768)
     assert clipped["flops_analytic"] < 0.9 * unclipped["flops_analytic"]
+
+
+# ---- the dry run's collective term (launch/dryrun.py::collective_bytes)
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_collective_bytes_are_finite_on_the_production_meshes(arch):
+    import math
+    for name in T_SHAPES:
+        for multi_pod in (False, True):
+            res = t_dryrun.dryrun(arch, name, multi_pod=multi_pod,
+                                  verbose=False)
+            if res is None:
+                continue
+            comm = res["collective_bytes_per_device"]
+            assert set(comm) == {"all_gather", "reduce_scatter",
+                                 "all_reduce"}
+            assert all(isinstance(v, int) and v >= 0 for v in comm.values())
+            assert sum(comm.values()) > 0
+            assert res["collective_bytes_analytic"] == \
+                sum(comm.values()) * res["num_chips"]
+            assert math.isfinite(res["t_collective_analytic"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_collective_bytes_are_zero_on_one_rank(arch):
+    one = MeshShape(("data", "model"), (1, 1))
+    cfg = t_reduced(t_get_config(arch))
+    for mode in ("train", "prefill", "decode"):
+        got = t_dryrun.collective_bytes(cfg, TInputShape(mode, 64, 2, mode),
+                                        one)
+        assert got == {"all_gather": 0, "reduce_scatter": 0,
+                       "all_reduce": 0}
+
+
+def test_collective_bytes_hand_count_reduced_stablelm_2x2():
+    """Reduced StableLM (bf16 leaves, d 256, vocab 1024, 4 heads of 64, 4
+    KV heads, d_ff 512, one layer), train, batch 4 x 16, remat, on 2 x 2
+    (data, model): 2 rows a rank.  Every group has 2 ranks, so an
+    all-gather passes its input once, a reduce-scatter its output once
+    and an all-reduce its bytes once."""
+    # parameters gathered over `data` (the local shards' bytes): the
+    # embedding and the head 512 x 128 x 2 each, once; the layer's wq,
+    # wk, wv, wo 128 x 2 x 64 x 2 each, w_in 128 x 2 x 256 x 2, w_out
+    # 256 x 128 x 2, twice (the forward and remat's recompute); the
+    # backward reduce-scatters each gradient once
+    embed = head = 512 * 128 * 2
+    layer = 4 * (128 * 2 * 64 * 2) + 128 * 2 * 256 * 2 + 256 * 128 * 2
+    want_ag = embed + head + 2 * layer
+    want_rs = embed + head + layer
+    # all-reduces over `model` of [2, 16, 256] bf16 (8192 B x 2): the
+    # embedding's rows (forward), attention's and the FFN's f (backward)
+    # and g (forward and recompute), the head's f (backward); the loss's
+    # three [2, 16] f32 sums; over `data` the gradients of norm1, norm2
+    # and final_norm (256 f32 each), the loss (4 B: 2 x ceil(1/2) x 4)
+    # and over both axes the clip's norm
+    act = 2 * 16 * 256 * 2
+    want_ar = (act + 2 * (act + 2 * act) + act + 3 * 2 * 16 * 4
+               + 3 * 256 * 4 + 8 + 2 * 8)
+    got = t_dryrun.collective_bytes(
+        t_reduced(t_get_config("stablelm_3b")),
+        TInputShape("t", 16, 4, "train"),
+        MeshShape(("data", "model"), (2, 2)))
+    assert got == {"all_gather": want_ag, "reduce_scatter": want_rs,
+                   "all_reduce": want_ar}

@@ -166,6 +166,38 @@ def test_spec_k3_parity_with_replay_hints(weights):
     assert_no_leaks(teng)
 
 
+def _step_counts(reports):
+    return [(r.kind, r.prefill_tokens, r.decode_tokens, r.drafted_tokens,
+             r.accepted_tokens) for r in reports]
+
+
+@pytest.mark.parametrize("spec_ngram", [3, 2])
+def test_step_tokens_and_spec_ngram_parity_with_response_cache(
+        weights, spec_ngram):
+    """``step_tokens`` and ``spec_ngram`` reach the scheduler as the JAX
+    engine passes them: a step budget of 3 tokens, speculative lanes
+    (spec_k=2) drafted from the response cache (primed by a first pass,
+    then the same prompts replayed, as tests/test_kv_reuse.py's
+    padding-parity test builds them).  The tokens and every step's
+    prefill / decode / drafted / accepted counts are the JAX engine's."""
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, JCFG.vocab_size, 8) for _ in range(3)]
+    jeng, teng = engines(weights, spec_k=2, step_tokens=3,
+                         spec_ngram=spec_ngram, response_cache=True)
+    assert teng.runtime.sched.cfg.step_tokens == 3
+    assert teng.runtime.sched.cfg.spec_ngram == spec_ngram
+    for ids in (range(3), range(10, 13)):
+        jreqs, treqs, jrep, trep = run_both(
+            jeng, teng, [(i, p, 8, {}) for i, p in zip(ids, prompts)])
+        assert_same_tokens(jreqs, treqs)
+        assert _step_counts(trep) == _step_counts(jrep)
+    assert teng.metrics.drafted_tokens_total == \
+        jeng.metrics.drafted_tokens_total > 0
+    assert teng.metrics.accepted_tokens_total == \
+        jeng.metrics.accepted_tokens_total
+    assert_no_leaks(teng)
+
+
 def test_drain_and_redrive_parity_with_tracer_hook(weights):
     """``drain_requests`` mid-run releases every page and hands back the
     same resident requests as the JAX engine, rolled to a restartable
