@@ -132,13 +132,23 @@ on its own line:
    world size 1, and the peak memory and the largest parameter gather
    alive at once are printed; the dry run prints each step's analytic
    collective bytes a device (``launch/dryrun.py::collective_bytes``);
-   then each kernel on a sharded path against its plain version at the
-   per-rank shape a 4-way ``model`` axis gives it (heads or channels / 4:
-   flash forward and backward at StableLM-3B's S = T = 4096 with 8 heads
-   of 80, MLA's 32 heads at hd 192, the WKV forward and backward at
-   RWKV-6's B 2, S 4096, 8 heads of 64, the selective scan's forward in
-   its checkpoint mode and its backward at Jamba's B 2, S 4096, D 2048,
-   N 16), phase 3's tolerances, each timed beside its plain version.
+   (e) the same train step under ``make_policy(..., seq_parallel=True)``
+   (Megatron's sequence parallelism, ``build_step``'s override) for 2
+   steps on the same seed, weights and batch, whose losses must be (a)'s
+   bit for bit; (f) full-width StableLM-3B served dense and paged by the
+   engines under ``policy=make_policy(<decode shape>), mesh=`` the 1 x 1
+   mesh, in turns with the unsharded engines on the same weights and
+   prompts (unsharded, policy, policy, unsharded), every run the same
+   tokens, each path's kernel launched once a pass and layer; the
+   tally over (a) to (f) must be 0 bytes; (g) each kernel on a sharded
+   path against its plain version at the per-rank shape a 4-way
+   ``model`` axis gives it (heads or channels / 4: flash forward and
+   backward at StableLM-3B's S = T = 4096 with 8 heads of 80, MLA's 32
+   heads at hd 192, the WKV forward and backward at RWKV-6's B 2, S 4096,
+   8 heads of 64, the selective scan's forward in its checkpoint mode and
+   its backward at Jamba's B 2, S 4096, D 2048, N 16, and paged attention
+   at StableLM-3B's 8 of 32 heads of 80 and OLMo 2's 8 of 32 of 128),
+   phase 3's tolerances, each timed beside its plain version.
 
 The line before the last is the kernels' JSON summary, the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -2118,6 +2128,12 @@ def training(torch, smi: str) -> dict:
 SHARDED = dict(arch="stablelm_3b", train_steps=2, prompt=1024, decodes=4,
                cap=1088)
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+# benchmarks/hillclimb.py's three pairs and StableLM-3B's train_4k: the
+# dry run under make_policy(..., seq_parallel=True) beside the default
+SEQ_PARALLEL_PAIRS = (("stablelm_3b", "train_4k"),
+                      ("deepseek_v2_236b", "train_4k"),
+                      ("mixtral_8x7b", "prefill_32k"),
+                      ("jamba_v0_1_52b", "train_4k"))
 
 
 def dry_runs() -> dict:
@@ -2148,6 +2164,26 @@ def dry_runs() -> dict:
             + ", ".join(cells))
     log(f"[9/9] dry run: {len(out)} steps built on meta tensors and checked "
         f"in {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs.base import INPUT_SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shardings import make_policy
+    for arch, shape in SEQ_PARALLEL_PAIRS:
+        policy = make_policy(get_config(arch), INPUT_SHAPES[shape],
+                             make_production_mesh(), seq_parallel=True)
+        sp = dryrun(arch, shape, verbose=False, policy_override=policy)
+        out[f"{arch}/{shape}/256/seq_parallel"] = sp
+        cells = []
+        for tag, res in (("default", out[f"{arch}/{shape}/256"]),
+                         ("seq_parallel", sp)):
+            comm = res["collective_bytes_per_device"]
+            cells.append(
+                f"{tag}: memory {res['analytic_memory']['total'] / 2**30:.2f}"
+                f", all-gather {comm['all_gather'] / 2**30:.3f}, "
+                f"reduce-scatter {comm['reduce_scatter'] / 2**30:.3f}, "
+                f"all-reduce {comm['all_reduce'] / 2**30:.3f}, total "
+                f"{sum(comm.values()) / 2**30:.3f}")
+        log(f"[9/9] dry run {arch} {shape} on 256 chips (analytic GiB a "
+            f"device, not measured): " + "; ".join(cells))
     return out
 
 
@@ -2182,12 +2218,22 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
             out["train"], params, tokens = _sharded_train(
                 torch, smi, cfg, mesh, phase8_losses)
             out["decode"] = _sharded_decode(torch, cfg, mesh, params, tokens)
+            del params, tokens
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["seq_parallel"] = _sharded_train(
+                torch, smi, cfg, mesh, out["train"]["losses"],
+                seq_parallel=True)[0]
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["engines"] = _sharded_engines(torch, smi, cfg, mesh)
             out["collective_bytes"] = collectives.read_tally()
             out["gathered"] = partition.read_gathered()
         finally:
             dist.destroy_process_group()
     log(f"[9/9] build_step's collective tally over the train, prefill and "
-        f"serve steps at world size 1: {out['collective_bytes']} bytes; "
+        f"serve steps, the seq_parallel train steps and the engines under "
+        f"the policy at world size 1: {out['collective_bytes']} bytes; "
         f"peak memory {out['train']['peak_gib']:.2f} GiB ({smi}); gathered "
         f"parameters alive at once: peak {out['gathered']['peak']} bytes, "
         f"largest gather {out['gathered']['largest']} bytes (a 1 x 1 mesh "
@@ -2196,7 +2242,6 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
         raise AssertionError(f"world size 1 passed "
                              f"{out['collective_bytes']} bytes to "
                              f"collectives: every group there has one rank")
-    del params, tokens
     gc.collect()
     torch.cuda.empty_cache()
     out["per_rank"] = per_rank_kernels(torch, smi)
@@ -2205,10 +2250,14 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
     return out
 
 
-def _sharded_train(torch, smi, cfg, mesh, phase8_losses) -> tuple:
-    """(result, the trained weights, the batch's tokens)."""
+def _sharded_train(torch, smi, cfg, mesh, phase8_losses,
+                   seq_parallel: bool = False) -> tuple:
+    """(result, the trained weights, the batch's tokens).  With
+    ``seq_parallel`` the step follows ``make_policy(..., seq_parallel=
+    True)`` (``build_step``'s override), and ``phase8_losses`` are (a)'s
+    build_step losses."""
     from repro_torch.configs.base import InputShape
-    from repro_torch.launch.shardings import shard_tree
+    from repro_torch.launch.shardings import make_policy, shard_tree
     from repro_torch.launch.specs import batch_plan
     from repro_torch.launch.steps import build_step
     from repro_torch.models.model import Model, model_plan
@@ -2219,7 +2268,10 @@ def _sharded_train(torch, smi, cfg, mesh, phase8_losses) -> tuple:
     shape = InputShape("train_2x4096", TRAIN["seq"], TRAIN["batch"], "train")
     ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=TRAIN["warmup"],
                            total_steps=TRAIN["steps"])
-    step, *_ = build_step(cfg, shape, mesh, ocfg=ocfg)
+    override = (make_policy(cfg, shape, mesh, seq_parallel=True)
+                if seq_parallel else None)
+    step, *_ = build_step(cfg, shape, mesh, ocfg=ocfg,
+                          policy_override=override)
     # phase 8 (a)'s batch and weights (launch/train.py::train_full_width)
     pipe = SyntheticTokenPipeline(cfg.vocab_size, TRAIN["batch"],
                                   TRAIN["seq"], seed=TRAIN["seed"])
@@ -2244,17 +2296,19 @@ def _sharded_train(torch, smi, cfg, mesh, phase8_losses) -> tuple:
     want = phase8_losses[:SHARDED["train_steps"]]
     layers = len(cfg.layer_specs())
     n = SHARDED["train_steps"]
+    what = ("(e) under seq_parallel, against (a)'s" if seq_parallel
+            else "against phase 8 (a)'s")
     log(f"[9/9] build_step train {cfg.name} full width (bf16, remat, batch "
         f"{TRAIN['batch']} x seq {TRAIN['seq']}, {n} steps, phase 8 (a)'s "
         f"seed, weights and batch; {smi}): step ms "
         f"{[round(x, 1) for x in step_ms]}, peak {peak:.2f} GiB, losses "
-        f"{losses} against phase 8 (a)'s {want} "
+        f"{losses} {what} {want} "
         f"(differences {[a - b for a, b in zip(losses, want)]}), launches "
         f"flash_attention {counts['flash_attention']}, flash_attention_bwd "
         f"{counts['flash_attention_bwd']}")
     if losses != want:
-        raise AssertionError(f"build_step's losses {losses} are not phase 8 "
-                             f"(a)'s {want}: at world size 1 nothing is "
+        raise AssertionError(f"build_step's losses {losses} are not {want} "
+                             f"({what}): at world size 1 nothing is "
                              f"gathered or summed, so the step must be the "
                              f"direct step's arithmetic")
     if (counts["flash_attention"], counts["flash_attention_bwd"]) != (
@@ -2313,6 +2367,87 @@ def _sharded_decode(torch, cfg, mesh, params, tokens) -> dict:
                              f"{counts['flash_attention']} times")
     return {"tokens": toks, "identical": same, "wall_ms": wall_ms,
             "counts": counts}
+
+
+# (f): the engines under a policy on the 1 x 1 mesh, beside the unsharded
+# engines on the same weights and prompts
+ENGINE_PROMPTS = dict(lens=(300, 64, 1000, 17), max_new=16, slots=4,
+                      seq_cap=2048)
+
+
+def _sharded_engines(torch, smi, cfg, mesh) -> dict:
+    """Full-width StableLM-3B (bf16, random weights from seed 0) served
+    dense and paged by ``ServingEngine`` with and without ``policy=
+    make_policy(<decode shape>), mesh=mesh``, in turns (unsharded,
+    policy, policy, unsharded): every run must give the first run's
+    tokens, and launch the kernel of its path (flash in each dense
+    prefill, paged attention in each fused step) once a pass and layer.
+    The walls are host-clock times of the whole run."""
+    import numpy as np
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.shardings import make_policy
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    e = ENGINE_PROMPTS
+    params = Model(cfg, seed=0, device="cuda").params
+    policy = make_policy(cfg, InputShape("serve", e["seq_cap"], e["slots"],
+                                         "decode"), mesh)
+    layers = len(cfg.layer_specs())
+    out = {}
+    for backend, kname, passes in (
+            ("dense", "flash_attention", "prefill_passes"),
+            ("paged", "paged_attention_mixed", "forward_passes")):
+        runs = []
+        for tag in ("unsharded", "policy", "policy", "unsharded"):
+            kw = dict(policy=policy, mesh=mesh) if tag == "policy" else {}
+            eng = ServingEngine(cfg, params, max_slots=e["slots"],
+                                seq_cap=e["seq_cap"], backend=backend,
+                                device="cuda", **kw)
+            rng = np.random.default_rng(5)
+            reqs = [Request(req_id=i, tenant="T1", prompt_len=n,
+                            max_new_tokens=e["max_new"], arrival=0.0,
+                            prompt_tokens=rng.integers(0, cfg.vocab_size, n))
+                    for i, n in enumerate(e["lens"])]
+            for r in reqs:
+                if not eng.submit(r):
+                    raise AssertionError(f"{backend} engine refused {r}")
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = 0
+            while eng.has_work():
+                eng.finalize_step(eng.step(), float(steps))
+                steps += 1
+            torch.cuda.synchronize()
+            run = {"tag": tag, "tokens": [list(r.output_tokens) for r in reqs],
+                   "steps": steps, "passes": getattr(eng, passes),
+                   "launches": read_counts()[kname],
+                   "wall_ms": (time.perf_counter() - t0) * 1e3}
+            runs.append(run)
+            del eng
+            if run["tokens"] != runs[0]["tokens"]:
+                raise AssertionError(f"{backend} engine ({tag}) gave "
+                                     f"{run['tokens']}, the first run "
+                                     f"{runs[0]['tokens']}")
+            want = run["passes"] * layers
+            if run["launches"] == 0 or run["launches"] != want:
+                raise AssertionError(f"{backend} engine ({tag}) launched "
+                                     f"{kname} {run['launches']} times, "
+                                     f"expected {want}")
+        walls = {tag: [round(r["wall_ms"], 1) for r in runs
+                       if r["tag"] == tag] for tag in ("unsharded", "policy")}
+        log(f"[9/9] (f) {cfg.name} {backend} full width (bf16, prompts "
+            f"{list(e['lens'])}, {e['max_new']} new tokens each), in turns "
+            f"unsharded / under policy= on the 1 x 1 mesh: "
+            f"{runs[1]['steps']} steps, walls ms {walls} ({smi}); every "
+            f"run the first run's tokens; {kname} launches "
+            f"{runs[1]['launches']} a run ({runs[1]['passes']} passes x "
+            f"{layers} layers); first request's tokens "
+            f"{runs[1]['tokens'][0]}")
+        out[backend] = runs
+    del params
+    return out
 
 
 # a 4-way `model` axis: the sharded path's kernel shapes on one rank, at
@@ -2477,6 +2612,34 @@ def per_rank_kernels(torch, smi: str) -> list:
                  warmup=0))
     del args, fwd, y, hf, ckpt, yr, hr, want, x, delta, a, bm, cm, dd, h
     torch.cuda.empty_cache()
+
+    # paged attention on a rank's heads of the served layouts (MHA, so
+    # the rank holds as many KV heads): StableLM-3B's and OLMo 2's 32
+    # heads over m, one fused step's lane-major call in bf16
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_mixed_ref)
+    for name, heads, hd in (("paged_attention_mixed stablelm_3b", 32, 80),
+                            ("paged_attention_mixed olmo2_7b", 32, 128)):
+        h = heads // m
+        x = main_path_step(torch, heads=h, kv=h, hd=hd, layout="lane")
+        args = (x["q"].to(torch.bfloat16), x["k"].to(torch.bfloat16),
+                x["v"].to(torch.bfloat16), x["bt"], x["qpos"])
+        got = pa_kernel.paged_attention_mixed(*args)
+        torch.cuda.synchronize()
+        ref = paged_attention_mixed_ref(*args)
+        err = float((got.float() - ref.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), ref.float(), rtol=2e-2,
+                                 atol=2e-2))
+        shape = {"L": args[0].shape[0], "Q": args[0].shape[1], "H": h,
+                 "KV": h, "hd": hd, "dtype": "bfloat16"}
+        done(name, shape, ok, {"o": err},
+             kernel_ms(torch, lambda: pa_kernel.paged_attention_mixed(
+                 *args))[0],
+             cuda_ms(torch, lambda: paged_attention_mixed_ref(*args),
+                     iters=5))
+        del x, args, got, ref
+        torch.cuda.empty_cache()
     return results
 
 

@@ -31,7 +31,11 @@ The autograd Functions give each use the backward its place needs:
   ``split_to(x, groups, dim)``  this rank's block; backward all-gather;
   ``scatter_sum(x, groups, dim)``  reduce-scatter (every rank's partial
       sums of every block, this rank's block summed); backward
-      all-gather (each block's cotangent to every rank).
+      all-gather (each block's cotangent to every rank);
+  ``keep_own(x, groups, dim)``  identity; the backward keeps this rank's
+      block of the cotangent and zeroes the rest (no communication: a
+      whole cotangent that then meets the others in a reduce-scatter is
+      counted once).
 
 ``all_reduce`` (sum or max) and ``all_gather`` without autograd serve the
 step's bookkeeping and the decode merges.
@@ -209,6 +213,21 @@ class _ScatterSum(torch.autograd.Function):
         return all_gather(grad, ctx.groups, ctx.dim), None, None
 
 
+class _KeepOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups, dim):
+        ctx.groups, ctx.dim = groups, dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = torch.zeros_like(grad)
+        block = grad.shape[ctx.dim] // extent(ctx.groups)
+        lo = rank_index(ctx.groups) * block
+        out.narrow(ctx.dim, lo, block).copy_(grad.narrow(ctx.dim, lo, block))
+        return out, None, None
+
+
 def _live(groups) -> tuple:
     return tuple(g for g in groups if size(g) > 1)
 
@@ -248,3 +267,10 @@ def scatter_sum(x, groups, dim: int = 0):
     if not groups:
         return x
     return _ScatterSum.apply(x, groups, dim)
+
+
+def keep_own(x, groups, dim: int):
+    groups = _live(groups)
+    if not groups or not torch.is_grad_enabled():
+        return x
+    return _KeepOwn.apply(x, groups, dim)

@@ -36,7 +36,7 @@ from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import batch_axes, make_production_mesh, mesh_view
 from repro_torch.launch.shardings import axes_of, make_policy
 from repro_torch.launch.specs import batch_plan, decode_arg_plans
-from repro_torch.launch.steps import build_step
+from repro_torch.launch.steps import build_step, followed_policy
 from repro_torch.models.model import ENCODER_LAYER, model_plan
 from repro_torch.models.params import (_axis_size, count_params, param_bytes,
                                        plan_leaves, pspecs_from_plan,
@@ -257,7 +257,7 @@ class _StepCount:
     recompute makes them again) and ``bwd`` times in the backward."""
 
     def __init__(self, cfg: ModelConfig, shape: InputShape, mesh, remat,
-                 plan=None):
+                 plan=None, policy=None):
         view = mesh_view(mesh)
         self.cfg, self.shape = cfg, shape
         self.sizes = dict(view.shape)
@@ -278,7 +278,11 @@ class _StepCount:
         self.rows = _live_axes(tok[0] if tok else None, self.sizes)
         self.nr = int(np.prod([self.sizes[a] for a in self.rows]))
         self.b = shape.global_batch // self.nr
-        self.policy = make_policy(cfg, shape, view)
+        self.policy = followed_policy(cfg, shape, view, policy)
+        act = self.policy.act or ()
+        # sequence parallelism: the residual stream split along S
+        self.seq = (shape.mode != "decode" and len(act) > 1
+                    and "model" in axes_of(act[1]) and self.m > 1)
 
     # ---- pieces
     def f(self, numel, bwd):
@@ -289,6 +293,44 @@ class _StepCount:
     def g(self, numel, fwd):
         """Megatron's g: an all-reduce over ``model`` in the forward."""
         self.c.ar(numel, self.isz, ("model",), fwd)
+
+    def enter(self, numel, split, fwd, bwd, isz=None):
+        """``Part.enter`` of a stream of ``numel`` elements (the whole
+        sequence's)."""
+        isz = isz or self.isz
+        if not self.seq:
+            if split:
+                self.f(numel, bwd)
+            return
+        self.c.ag(numel // self.m * isz, ("model",), fwd)
+        if self.train and split:
+            self.c.rs(numel * isz, ("model",), bwd)
+
+    def leave(self, numel, split, fwd, bwd, isz=None):
+        """``Part.leave`` of a block's output of ``numel`` elements."""
+        isz = isz or self.isz
+        if not self.seq:
+            if split:
+                self.c.ar(numel, isz, ("model",), fwd)
+            return
+        if split:
+            self.c.rs(numel * isz, ("model",), fwd)
+        if self.train:
+            self.c.ag(numel // self.m * isz, ("model",), bwd)
+
+    def shared(self, plan, specs, names, bwd, stacked=False):
+        """``Part.shared`` on the named leaves (a weight applied to the
+        rank's rows): an all-reduce of its gathered gradient over
+        ``model`` in the backward."""
+        if not (self.seq and self.train):
+            return
+        for name in names:
+            p, spec = plan[name], specs[name]
+            shape, spec = ((p.shape[1:], spec[1:]) if stacked
+                           else (p.shape, spec))
+            n = int(np.prod([dd // (self.m if _split(spec, i, self.sizes)
+                                    else 1) for i, dd in enumerate(shape)]))
+            self.c.ar(n, torch_dtype(p.dtype).itemsize, ("model",), bwd)
 
     def gather(self, tree, specs, fwd, bwd, stacked=False):
         """Parameters gathered at use over their batch-axis dims."""
@@ -318,7 +360,10 @@ class _StepCount:
                 nbytes //= int(np.prod([self.sizes[a] for a in axes]))
 
     def attention(self, specs, cspec, s, fwd, bwd, *, memory_len=0,
-                  decode=False, cross=False):
+                  decode=False, cross=False, plan=None, pspecs=None,
+                  stacked=False):
+        """``plan`` and ``pspecs``: the layer's attention leaves and their
+        specs as stored (stacked when ``stacked``)."""
         a, cfg = self.cfg.attn, self.cfg
         b, d = self.b, cfg.d_model
         if a.kind == "mla" and not cross:
@@ -327,26 +372,24 @@ class _StepCount:
             split = _split(specs["wq"], 1, self.sizes)
         hl = a.num_heads // self.m if split else a.num_heads
         if not decode:
-            if split:
-                if a.kind == "mla" and not cross:
-                    self.f(b * s * a.q_lora_rank, bwd)
-                    self.f(b * s * a.kv_lora_rank, bwd)
-                    self.f(b * s * a.rope_head_dim, bwd)
-                else:
-                    kv_split = _split(specs["wk"], 1, self.sizes)
-                    if cross:
-                        if kv_split:
-                            self.f(b * memory_len * d, bwd)
-                        else:
-                            self.f(b * memory_len * a.num_kv_heads
-                                   * a.head_dim, 2 * bwd)
-                        self.f(b * s * d, bwd)
-                    else:
-                        self.f(b * s * d, bwd)
-                        if not kv_split:
-                            self.f(b * s * a.num_kv_heads * a.head_dim,
-                                   2 * bwd)
-                self.g(b * s * d, fwd)
+            if a.kind == "mla" and not cross:
+                self.shared(plan, pspecs, ("wq_a", "q_norm", "wkv_a",
+                                           "kv_norm"), bwd, stacked)
+                for width in (a.q_lora_rank, a.kv_lora_rank,
+                              a.rope_head_dim):
+                    self.enter(b * s * width, split, fwd, bwd)
+            else:
+                kv_whole = split and not _split(specs["wk"], 1, self.sizes)
+                kv = a.num_kv_heads * a.head_dim
+                if cross:
+                    if self.seq or not kv_whole:
+                        self.enter(b * memory_len * d, split, fwd, bwd)
+                    if kv_whole:
+                        self.f(b * memory_len * kv, 2 * bwd)
+                self.enter(b * s * d, split, fwd, bwd)
+                if kv_whole and not cross:
+                    self.f(b * s * kv, 2 * bwd)
+            self.leave(b * s * d, split, fwd, bwd)
             return
         # decode against the stored cache
         key = "ck" if cross else ("ckv" if a.kind == "mla" else "k")
@@ -371,9 +414,9 @@ class _StepCount:
         cfg = self.cfg
         b, d = self.b, cfg.d_model
         if layer.ffn == "dense":
-            if _split(specs["ffn"]["w_in"], 2, self.sizes):
-                self.f(b * s * d, bwd)
-                self.g(b * s * d, fwd)
+            split = _split(specs["ffn"]["w_in"], 2, self.sizes)
+            self.enter(b * s * d, split, fwd, bwd)
+            self.leave(b * s * d, split, fwd, bwd)
         elif layer.ffn == "moe":
             self.moe(cfg.ffn_spec_for(layer), specs["moe"], s, fwd, bwd)
 
@@ -381,6 +424,8 @@ class _StepCount:
         b, d, isz = self.b, self.cfg.d_model, self.isz
         own = b * s
         t = own * self.nr
+        if self.seq:                                 # along S, to route
+            self.enter(own * d, True, fwd, bwd)
         self.c.ag(own * d * isz, self.rows, fwd)     # the rows, for routing
         if self.train:
             self.c.rs(t * d * isz, self.rows, bwd)
@@ -392,52 +437,66 @@ class _StepCount:
         self.c.rs(t * d * isz, self.rows, fwd)       # the shares, summed
         if self.train:
             self.c.ag(own * d * isz, self.rows, bwd)
-        if ep or tp:
-            self.g(own * d, fwd)
-        if spec.num_shared_experts and _split(specs["shared_wi"], 2,
-                                              self.sizes):
-            self.f(own * d, bwd)
-            self.g(own * d, fwd)
+        self.leave(own * d, ep or tp, fwd, bwd)
+        if spec.num_shared_experts:
+            split = _split(specs["shared_wi"], 2, self.sizes)
+            if split and not self.seq:
+                self.f(own * d, bwd)
+            self.leave(own * d, split, fwd, bwd)
 
     def mamba(self, specs, s, fwd, bwd):
         cfg = self.cfg
         b, d = self.b, cfg.d_model
-        if not _split(specs["in_proj"], 2, self.sizes):
-            return
-        dt_rank = cfg.mamba.dt_rank or -(-d // 16)
-        width = dt_rank + 2 * cfg.mamba.d_state
-        self.f(b * s * d, bwd)
-        self.g(b * s * width, fwd)
-        self.f(b * s * width, bwd)
-        self.g(b * s * d, fwd)
+        split = _split(specs["in_proj"], 2, self.sizes)
+        self.enter(b * s * d, split, fwd, bwd)
+        if split:
+            dt_rank = cfg.mamba.dt_rank or -(-d // 16)
+            width = dt_rank + 2 * cfg.mamba.d_state
+            self.g(b * s * width, fwd)
+            self.f(b * s * width, bwd)
+        self.leave(b * s * d, split, fwd, bwd)
 
     def rwkv(self, specs, s, fwd, bwd):
         cfg = self.cfg
         b, d = self.b, cfg.d_model
-        if _split(specs["wr"], 1, self.sizes):
+        split = _split(specs["wr"], 1, self.sizes)
+        self.enter(b * s * d, False, fwd, bwd)       # before the shift
+        if split:
             for _ in range(4):                       # xr, xk, xv, xg
                 self.f(b * s * d, bwd)
             self.f(b * s * cfg.rwkv.decay_lora, bwd)
             if self.train:                           # ln_x's slice
                 self.c.ag(d // self.m * 4, ("model",), bwd)
-            self.g(b * s * d, fwd)
+        self.leave(b * s * d, split, fwd, bwd)
+        # the channel-mix
+        self.enter(b * s * d, False, fwd, bwd)
         if _split(specs["cm_wr"], 1, self.sizes):
             self.f(b * s * d, bwd)
             self.c.ag(b * s * (d // self.m) * self.isz, ("model",), fwd)
-        if _split(specs["cm_wk"], 1, self.sizes):
+        pk = _split(specs["cm_wk"], 1, self.sizes)
+        if pk:
             self.f(b * s * d, bwd)
-            self.g(b * s * d, fwd)
+        self.leave(b * s * d, pk, fwd, bwd)          # o
+        self.leave(b * s * d, False, fwd, bwd)       # r
 
     def layer(self, layer, specs, cspec, s, fwd, bwd, *, memory_len=0,
               stacked=False, plan=None):
         self.gather(plan, specs, fwd, bwd, stacked)
+        norms = ["norm1"]
+        if layer.cross_attn and memory_len:
+            norms.append("norm_x")
+        if layer.ffn in ("dense", "moe"):
+            norms.append("norm2")
+        self.shared(plan, specs, norms, bwd, stacked)
+        pspecs = specs
         if stacked:
             specs = _strip(specs)
             cspec = _strip(cspec) if cspec is not None else None
         decode = self.shape.mode == "decode"
         if layer.mixer == "attn":
             self.attention(specs["attn"], cspec and cspec.get("self"), s,
-                           fwd, bwd, decode=decode)
+                           fwd, bwd, decode=decode, plan=plan["attn"],
+                           pspecs=pspecs["attn"], stacked=stacked)
             if layer.cross_attn and (memory_len or decode):
                 self.attention(specs["cross"], cspec and cspec.get("cross"),
                                s, fwd, bwd, memory_len=memory_len,
@@ -469,17 +528,31 @@ class _StepCount:
         if not decode and cfg.frontend.kind != "none":
             self.gather(plan["frontend_proj"], specs["frontend_proj"], 1, bwd)
         if not decode and cfg.encoder is not None:
+            self.leave(b * memory_len * d, False, 1, bwd)   # the frames
             for _ in range(cfg.encoder.num_layers):
                 self.layer(ENCODER_LAYER, specs["encoder"]["period"]["sub0"],
                            None, memory_len, nf, bwd, stacked=True,
                            plan=plan["encoder"]["period"]["sub0"])
             self.gather(plan["encoder"]["final_norm"],
                         specs["encoder"]["final_norm"], 1, bwd)
+            self.shared(plan["encoder"], specs["encoder"], ("final_norm",),
+                        bwd)
         # the embedding, masked to this rank's vocabulary rows and summed
+        # (under sequence parallelism a reduce-scatter along S, or this
+        # rank's rows of a whole vocabulary; a VLM's rows made whole, then
+        # cut)
         self.gather(plan["embed"], specs["embed"], 1, bwd)
+        esz = torch_dtype(plan["embed"].dtype).itemsize
+        vision = cfg.frontend.kind == "vision" and not decode
         if _split(specs["embed"], 0, self.sizes):
-            self.c.ar(b * s_text * d, torch_dtype(plan["embed"].dtype)
-                      .itemsize, ("model",))
+            if self.seq and not vision:
+                self.leave(b * s_text * d, True, 1, bwd, isz=esz)
+            else:
+                self.c.ar(b * s_text * d, esz, ("model",))
+        elif not vision:
+            self.shared(plan, specs, ("embed",), bwd)
+        if vision:
+            self.leave(b * s * d, False, 1, bwd)
         cs = self.cspecs if decode else {}
         for i, layer in enumerate(cfg.prefix):
             key = f"layer{i}"
@@ -499,8 +572,15 @@ class _StepCount:
         vsplit = _split(specs[head], 0 if cfg.tie_embeddings else 1,
                         self.sizes)
         rows = b * s_text
+        if self.seq:
+            self.shared(plan, specs, ("final_norm",), bwd)
+            if self.train:                           # gathered for the head
+                self.enter(b * s * d, vsplit, 1, bwd)
+            else:                                    # the last position's
+                self.c.ag(b * d * self.isz, ("model",))
         if vsplit and self.train:
-            self.f(rows * d, bwd)
+            if not self.seq:
+                self.f(rows * d, bwd)
             self.c.ar(rows, 4, ("model",))           # the row max
             self.c.ar(rows, 4, ("model",))           # the exponential sum
             self.c.ar(rows, 4, ("model",))           # the target's logit
@@ -529,13 +609,14 @@ def _strip(specs):
 
 
 def collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
-                     remat: bool = True, plan=None) -> Dict[str, int]:
+                     remat: bool = True, plan=None,
+                     policy=None) -> Dict[str, int]:
     """Bytes each rank passes to each collective kind in one step of
-    ``launch/steps.py::build_step(cfg, shape, mesh, remat=remat)``, by
-    ``launch/collectives.py``'s ring rules (every rank passes as many).
-    ``plan``: the parameters' plan, if they are stored in other dtypes
-    than ``model_plan(cfg)``'s."""
-    return _StepCount(cfg, shape, mesh, remat, plan).count()
+    ``launch/steps.py::build_step(cfg, shape, mesh, remat=remat,
+    policy_override=policy)``, by ``launch/collectives.py``'s ring rules
+    (every rank passes as many).  ``plan``: the parameters' plan, if they
+    are stored in other dtypes than ``model_plan(cfg)``'s."""
+    return _StepCount(cfg, shape, mesh, remat, plan, policy).count()
 
 
 def _arg_leaves(tree):
@@ -582,7 +663,7 @@ def dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     _, args, placements, _, _ = build_step(cfg, shape, mesh,
                                            policy_override=policy_override)
     leaves = _check_whole_shards(args, placements, mesh)
-    comm = collective_bytes(cfg, shape, mesh)
+    comm = collective_bytes(cfg, shape, mesh, policy=policy_override)
     terms = analytic_terms(cfg, shape, num_chips,
                            q_chunk=int(os.environ.get("REPRO_Q_CHUNK", "512")))
     result = {

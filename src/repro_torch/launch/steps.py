@@ -10,6 +10,15 @@ out_placements, donate):
 allocated) and the placements are DTensor placements of each leaf's
 resolved spec.
 
+The step follows ``policy_override`` where one is given, as the
+reference's does: the port follows ``make_policy(cfg, shape, mesh,
+seq_parallel=b)`` for either ``b`` and refuses any other policy.  Under
+``seq_parallel`` (train and prefill) the residual stream is split along
+the sequence over ``model`` (Megatron's sequence parallelism,
+``models/partition.py``); the weights applied to a rank's rows of it
+have their gradients summed over ``model`` where they are used
+(``Part.shared``).
+
 On a live ``DeviceMesh`` the functions run.  Every parameter, Adam moment
 and decode-cache leaf is stored as this rank's shard of its resolved spec
 (``shardings.local_shard``; ``shard_tree`` cuts a whole tree), and the
@@ -39,6 +48,7 @@ between the model's pieces, never inside a kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -109,7 +119,7 @@ def sharded_norm(grads, specs, mesh) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _cut(t: torch.Tensor, leaf, spec, part) -> torch.Tensor:
+def cut_to_stored(t: torch.Tensor, leaf, spec, part) -> torch.Tensor:
     """A cache leaf the prefill made whole along a dim its stored spec
     splits (the sequence; the batch's rows and split heads or channels
     come out local), cut to this rank's stored shard."""
@@ -125,22 +135,42 @@ def _cut(t: torch.Tensor, leaf, spec, part) -> torch.Tensor:
     return out if out is t else out.contiguous()
 
 
+def followed_policy(cfg: ModelConfig, shape: InputShape, mesh,
+                    policy_override=None):
+    """The policy a step follows: ``policy_override`` or, without one,
+    ``make_policy``'s.  An override must be ``make_policy``'s with or
+    without ``seq_parallel``; any other is refused (``ValueError``)
+    naming the field that differs."""
+    if policy_override is None:
+        return make_policy(cfg, shape, mesh)
+    want = make_policy(cfg, shape, mesh, seq_parallel=bool(
+        policy_override.act and len(policy_override.act) > 1
+        and policy_override.act[1] == "model"))
+    for f in dataclasses.fields(want):
+        if getattr(policy_override, f.name) != getattr(want, f.name):
+            raise ValueError(
+                f"policy_override.{f.name} = "
+                f"{getattr(policy_override, f.name)!r}: the port follows "
+                f"make_policy's policy with or without seq_parallel, "
+                f"whose {f.name} is {getattr(want, f.name)!r} "
+                f"(ROADMAP C1)")
+    return policy_override
+
+
 def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
                policy_override=None, remat: bool = True,
                ocfg: Optional[opt.AdamWConfig] = None,
                on_grads: Optional[Callable] = None):
     """``on_grads``, if given, is called by the train step with ``(params,
     grads)``, this rank's shards, between the gradients' reduction and the
-    optimizer (as ``trainer.make_train_step``'s)."""
-    # the model functions follow ``make_policy``'s policy, and the caches'
-    # specs come from ``decode_arg_plans``'s, as the reference's do
-    # (``policy_override`` is kept for the reference's signature)
-    del policy_override
+    optimizer (as ``trainer.make_train_step``'s).  The model functions
+    follow ``followed_policy``'s policy; the caches' specs come from
+    ``decode_arg_plans``, as the reference's do."""
+    policy = followed_policy(cfg, shape, mesh, policy_override)
     pplan = model_plan(cfg)
     p_specs = pspecs_from_plan(pplan, mesh)
     p_args = specs_from_plan(pplan)
     p_place = spec_tree_placements(p_specs, mesh)
-    policy = make_policy(cfg, shape, mesh)
 
     def part_for(rows_spec, cache_specs=None):
         return make_part(mesh, policy, p_specs, rows=row_axes(rows_spec),
@@ -209,7 +239,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh, *,
                 seq_cap=shape.seq_len, part=part)
             with torch.no_grad():
                 return logits, zip_map(
-                    lambda t, ps: _cut(t, ps[0], ps[1], part), cache,
+                    lambda t, ps: cut_to_stored(t, ps[0], ps[1], part), cache,
                     c_leaves)
 
         args = (p_args, specs_from_plan(bplan))

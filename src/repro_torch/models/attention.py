@@ -42,6 +42,11 @@ all-reduces (max, then sum), as flash-decoding merges its splits; a rank
 with no valid slot adds nothing.  When the query heads are split over
 ``model`` and the cache's sequence too, the query (one token) is gathered
 over ``model`` first and each rank keeps its heads of the context.
+Under sequence parallelism (``part.seq``) a prefill's input is this
+rank's rows of the stream: each block takes it whole through
+``part.enter`` (MLA's latent projections run on the rows first) and
+gives its output back through ``part.leave``; the K/V it returns cover
+the whole sequence.
 
 ``REPRO_KV_INT8=1`` selects the reference's int8 slot cache for GQA: int8
 K/V with one bf16 scale per (token, kv head), quantized on write and
@@ -192,18 +197,21 @@ def cross_cache_plan(cfg: ModelConfig, batch: int, enc_len: int, *,
 # ---------------------------------------------------------------------------
 
 def _qkv(params, x, positions, cfg: ModelConfig, part=None):
-    """Projections and RoPE.  x: [B,S,d]; positions: [B,S].  With
-    ``part``: q on this rank's heads; k and v on its KV heads, or whole
-    (every rank alike) when the KV heads are not split."""
-    if _q_split(params, cfg, part):
-        xf = part.f(x)
-        q = einsum("bsd,dhk->bshk", xf, params["wq"])
-        if params["wk"].shape[1] != cfg.attn.num_kv_heads:
-            k = einsum("bsd,dhk->bshk", xf, params["wk"])
-            v = einsum("bsd,dhk->bshk", xf, params["wv"])
+    """Projections and RoPE.  x: [B,S,d] (under ``part.seq`` this rank's
+    rows); positions: [B,S].  With ``part``: q on this rank's heads; k
+    and v on its KV heads, or whole (every rank alike) when the KV heads
+    are not split."""
+    if part is not None:
+        split = _q_split(params, cfg, part)
+        xe = part.enter(x, split)
+        q = einsum("bsd,dhk->bshk", xe, params["wq"])
+        if split and params["wk"].shape[1] == cfg.attn.num_kv_heads:
+            xa = part.alike(xe, x)
+            k = part.f(einsum("bsd,dhk->bshk", xa, params["wk"]))
+            v = part.f(einsum("bsd,dhk->bshk", xa, params["wv"]))
         else:
-            k = part.f(einsum("bsd,dhk->bshk", x, params["wk"]))
-            v = part.f(einsum("bsd,dhk->bshk", x, params["wv"]))
+            k = einsum("bsd,dhk->bshk", xe, params["wk"])
+            v = einsum("bsd,dhk->bshk", xe, params["wv"])
     else:
         q = einsum("bsd,dhk->bshk", x, params["wq"])
         k = einsum("bsd,dhk->bshk", x, params["wk"])
@@ -251,10 +259,11 @@ def gqa_prefill(params, x, positions, layer: LayerSpec, cfg: ModelConfig, *,
     makes them (RoPE reads them; the mask is the flash kernel's end-aligned
     one with T = S, which is the JAX mask ``pos_k <= pos_q`` (and
     ``pos_k > pos_q - window``) for such positions).  Returns
-    (out [B,S,d], (k, v))."""
+    (out [B,S,d], (k, v)); under ``part.seq`` x and out are this rank's
+    rows, k and v whole."""
     a = cfg.attn
-    b, s, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg, part)
+    b, s = q.shape[:2]
     split = _q_split(params, cfg, part)
     hl = q.shape[2]
     ka, va = k, v
@@ -266,8 +275,8 @@ def gqa_prefill(params, x, positions, layer: LayerSpec, cfg: ModelConfig, *,
                           softcap=a.logit_softcap, impl=impl)
     out = einsum("bshk,hkd->bsd", ctx.reshape(b, s, hl, a.head_dim),
                  params["wo"])
-    if split:
-        out = part.g(out)
+    if part is not None:
+        out = part.leave(out, split)
     return out, (k, v)
 
 
@@ -461,22 +470,30 @@ def _gqa_decode_split(params, x, cache, positions, layer: LayerSpec,
 # MLA (DeepSeek-V2)
 # ---------------------------------------------------------------------------
 
+def _shared(w, part):
+    return w if part is None else part.shared(w)
+
+
 def _mla_qkv_prefill(params, x, positions, cfg: ModelConfig, part=None):
     """Low-rank Q (normed latent, then per head ``[nope | rope]``) and the
     compressed KV row (normed ``ckv`` and the shared RoPE key).
     x: [B,S,d]; positions: [B,S].  With ``part`` Q has this rank's heads
-    (the latent, whole on every rank, enters them through ``f``)."""
+    (the latent, whole on every rank, enters them through ``f``); under
+    ``part.seq`` x is this rank's rows, the latents are made on them and
+    Q's enters whole (``ckv`` and ``k_rope`` stay this rank's rows)."""
     a = cfg.attn
-    q_lat = rms_norm(einsum("bsd,dr->bsr", x, params["wq_a"]),
-                     params["q_norm"], cfg.norm_eps)
-    if _q_split(params, cfg, part):
-        q_lat = part.f(q_lat)
+    q_lat = rms_norm(einsum("bsd,dr->bsr", x, _shared(params["wq_a"], part)),
+                     _shared(params["q_norm"], part), cfg.norm_eps)
+    if part is not None:
+        q_lat = part.enter(q_lat, _q_split(params, cfg, part))
     q = einsum("bsr,rhk->bshk", q_lat, params["wq_b"])
     q_nope, q_rope = q[..., : a.nope_head_dim], q[..., a.nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    kv = einsum("bsd,dr->bsr", x, params["wkv_a"])
-    ckv = rms_norm(kv[..., : a.kv_lora_rank], params["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(kv[..., None, a.kv_lora_rank:], positions,
+    kv = einsum("bsd,dr->bsr", x, _shared(params["wkv_a"], part))
+    ckv = rms_norm(kv[..., : a.kv_lora_rank],
+                   _shared(params["kv_norm"], part), cfg.norm_eps)
+    rows = positions if part is None else part.seq_rows(positions)
+    k_rope = apply_rope(kv[..., None, a.kv_lora_rank:], rows,
                         cfg.rope_theta)[..., 0, :]        # [B,S,rope]
     return q_nope, q_rope, ckv, k_rope
 
@@ -489,16 +506,16 @@ def mla_prefill(params, x, positions, layer: LayerSpec, cfg: ModelConfig, *,
     by every head), V zero-padded to the same width, scale
     1/sqrt(nope + rope) as in the reference; the output's first
     ``v_head_dim`` columns are the context.  Returns (out [B,S,d],
-    (ckv, k_rope))."""
+    (ckv, k_rope)), the latents over the whole sequence."""
     a = cfg.attn
-    b, s, _ = x.shape
     qk = a.nope_head_dim + a.rope_head_dim
     q_nope, q_rope, ckv, k_rope = _mla_qkv_prefill(params, x, positions, cfg,
                                                    part)
+    b, s, h = q_nope.shape[:3]              # h: this rank's heads
     split = _q_split(params, cfg, part)
-    h = q_nope.shape[2]                     # this rank's heads
-    ckv_h, k_rope_h = (part.f(ckv), part.f(k_rope)) if split else (ckv,
-                                                                   k_rope)
+    ckv_h, k_rope_h = ckv, k_rope
+    if part is not None:
+        ckv_h, k_rope_h = part.enter(ckv, split), part.enter(k_rope, split)
     k_nope = einsum("btr,rhk->bthk", ckv_h, params["wk_b"])
     v = einsum("btr,rhv->bthv", ckv_h, params["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -510,9 +527,9 @@ def mla_prefill(params, x, positions, layer: LayerSpec, cfg: ModelConfig, *,
                           causal=True, scale=1.0 / float(qk) ** 0.5,
                           impl=impl)
     out = einsum("bshv,hvd->bsd", ctx[..., : a.v_head_dim], params["wo"])
-    if split:
-        out = part.g(out)
-    return out, (ckv, k_rope)
+    if part is not None:
+        out = part.leave(out, split)
+    return out, (ckv_h, k_rope_h)
 
 
 def build_mla_cache(ckv, k_rope, positions, seq_cap: int):
@@ -615,18 +632,21 @@ def _mla_decode_split(params, x, cache, positions, cfg: ModelConfig, part,
 # ---------------------------------------------------------------------------
 
 def cross_attn_kv(params, memory, *, cfg=None, part=None):
-    """memory: [B,F,d] encoder output -> (ck, cv) [B,F,KV,hd]; with
-    ``part`` (and ``cfg``) this rank's KV heads, or whole on every rank
-    when they are not split."""
-    if not _q_split(params, cfg, part):
+    """memory: [B,F,d] encoder output (under ``part.seq`` this rank's
+    frames) -> (ck, cv) [B,F,KV,hd] over every frame; with ``part`` (and
+    ``cfg``) this rank's KV heads, or whole on every rank when they are
+    not split."""
+    if part is None:
         return (einsum("bfd,dhk->bfhk", memory, params["wk"]),
                 einsum("bfd,dhk->bfhk", memory, params["wv"]))
-    if params["wk"].shape[1] != cfg.attn.num_kv_heads:
-        mf = part.f(memory)
-        return (einsum("bfd,dhk->bfhk", mf, params["wk"]),
-                einsum("bfd,dhk->bfhk", mf, params["wv"]))
-    return (part.f(einsum("bfd,dhk->bfhk", memory, params["wk"])),
-            part.f(einsum("bfd,dhk->bfhk", memory, params["wv"])))
+    split = _q_split(params, cfg, part)
+    me = part.enter(memory, split)
+    if split and params["wk"].shape[1] == cfg.attn.num_kv_heads:
+        ma = part.alike(me, memory)
+        return (part.f(einsum("bfd,dhk->bfhk", ma, params["wk"])),
+                part.f(einsum("bfd,dhk->bfhk", ma, params["wv"])))
+    return (einsum("bfd,dhk->bfhk", me, params["wk"]),
+            einsum("bfd,dhk->bfhk", me, params["wv"]))
 
 
 def cross_attn(params, x, ck, cv, cfg: ModelConfig, *, kv_len=None,
@@ -641,7 +661,8 @@ def cross_attn(params, x, ck, cv, cfg: ModelConfig, *, kv_len=None,
     a = cfg.attn
     b, s, _ = x.shape
     split = _q_split(params, cfg, part)
-    if split or _SeqSplit(part, cspec, "ck", ck.shape[1]).groups:
+    if split or (part is not None and part.seq) or _SeqSplit(
+            part, cspec, "ck", ck.shape[1]).groups:
         return _cross_attn_split(params, x, ck, cv, cfg, kv_len, impl, part,
                                  cspec)
     q = einsum("bsd,dhk->bshk", x, params["wq"])
@@ -664,12 +685,12 @@ def cross_attn(params, x, ck, cv, cfg: ModelConfig, *, kv_len=None,
 def _cross_attn_split(params, x, ck, cv, cfg: ModelConfig, kv_len, impl,
                       part, cspec):
     """``cross_attn`` on this rank's query heads, and in decode on its
-    heads or frames of the stored cross cache."""
+    heads or frames of the stored cross cache; under ``part.seq`` on this
+    rank's rows of the decoder's stream."""
     a = cfg.attn
-    b, s, _ = x.shape
     split = _q_split(params, cfg, part)
-    q = einsum("bsd,dhk->bshk", part.f(x) if split else x, params["wq"])
-    hl = q.shape[2]
+    q = einsum("bsd,dhk->bshk", part.enter(x, split), params["wq"])
+    b, s, hl = q.shape[:3]
     if kv_len is None:
         if split and ck.shape[2] == a.num_kv_heads:
             ck = _kv_for_heads(ck, part.mi * hl, hl, a.num_heads)
@@ -701,4 +722,4 @@ def _cross_attn_split(params, x, ck, cv, cfg: ModelConfig, kv_len, impl,
             ctx = ctx.narrow(2, part.mi * hl, hl)
     out = einsum("bshk,hkd->bsd", ctx.reshape(b, s, hl, a.head_dim),
                  params["wo"])
-    return part.g(out) if split else out
+    return part.leave(out, split)

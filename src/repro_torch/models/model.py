@@ -17,6 +17,14 @@ load-balance loss is summed over layers in ``forward_seq`` (``train_loss``
 adds it to the loss) and dropped in decode, as serving drops it.  A
 training forward builds no cache, and with ``remat`` each period repeat
 runs under ``torch.utils.checkpoint``, where JAX checkpoints the scan body.
+
+Under a sharded step's sequence parallelism (``part.seq``,
+``models/partition.py``) the residual stream between blocks is this
+rank's ``S / m`` rows: the embedding gives them (a reduce-scatter along S
+when the vocabulary is split; this rank's tokens' rows when it is whole),
+each block enters and leaves through ``part.enter`` / ``part.leave``, the
+norms run on the rows, and the head gathers the stream along S.  A VLM's
+or an encoder's input is made whole and cut to the rank's rows.
 """
 from __future__ import annotations
 
@@ -202,22 +210,33 @@ def layer_walk(cfg: ModelConfig, params, cache=None):
 def embed_tokens(params, cfg: ModelConfig, tokens, part=None):
     """With ``part``: the embedding gathered at use; when its vocabulary is
     split over ``model``, each rank looks up the tokens of its rows of the
-    vocabulary (zeros for the others) and the rows meet in a sum."""
+    vocabulary (zeros for the others) and the rows meet in a sum (under
+    ``part.seq`` a reduce-scatter along S); a whole vocabulary under
+    ``part.seq`` looks up this rank's tokens only."""
     if part is None:
         return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    part.check_seq(tokens.shape[-1], "sequence")
     w = part.gather_params(params["embed"], part.specs["embed"])
     vl = w.shape[0]
     if vl == cfg.vocab_size:
-        return w[tokens].to(torch_dtype(cfg.dtype))
+        return part.shared(w)[part.seq_rows(tokens)].to(
+            torch_dtype(cfg.dtype))
     local = tokens - part.mi * vl
     inside = (local >= 0) & (local < vl)
     rows = w[local.clamp(0, vl - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    return part.g(rows).to(torch_dtype(cfg.dtype))
+    return part.leave(rows).to(torch_dtype(cfg.dtype))
 
 
 def _zero(h):
     return torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _norm(h, w, cfg: ModelConfig, part):
+    """``rms_norm`` of the stream, the weight taken through
+    ``part.shared`` (its gradient summed over ``model`` under
+    ``part.seq``)."""
+    return rms_norm(h, w if part is None else part.shared(w), cfg.norm_eps)
 
 
 def _ffn(lp, h, layer: LayerSpec, cfg: ModelConfig, part=None):
@@ -231,15 +250,16 @@ def _ffn(lp, h, layer: LayerSpec, cfg: ModelConfig, part=None):
         return h, _zero(h)
     if layer.ffn not in ("dense", "moe"):
         raise ValueError(layer.ffn)
-    x = rms_norm(h, lp["norm2"], cfg.norm_eps)
+    x = _norm(h, lp["norm2"], cfg, part)
     fspec = cfg.ffn_spec_for(layer)
     if layer.ffn == "moe":
         out, aux = moe_mod.moe_ffn(lp["moe"], x, fspec, cfg, part=part)
         return h + out, aux
     w_in, w_out = lp["ffn"]["w_in"], lp["ffn"]["w_out"]
-    if part is not None and w_in.shape[2] != fspec.d_ff:
-        return h + part.g(gated_ffn(part.f(x), w_in, w_out,
-                                    fspec.activation)), _zero(h)
+    if part is not None:
+        split = w_in.shape[2] != fspec.d_ff
+        return h + part.leave(gated_ffn(part.enter(x, split), w_in, w_out,
+                                        fspec.activation), split), _zero(h)
     return h + gated_ffn(x, w_in, w_out, fspec.activation), _zero(h)
 
 
@@ -255,7 +275,7 @@ def _apply_ffn(lp, h, layer: LayerSpec, cfg: ModelConfig, part=None):
 def _cross(lp, h, cfg: ModelConfig, ck, cv, *, kv_len=None,
            impl: str = "auto", part=None, cspec=None):
     """The residual cross-attention block of an enc-dec decoder layer."""
-    xq = rms_norm(h, lp["norm_x"], cfg.norm_eps)
+    xq = _norm(h, lp["norm_x"], cfg, part)
     return h + attn_mod.cross_attn(lp["cross"], xq, ck, cv, cfg,
                                    kv_len=kv_len, impl=impl, part=part,
                                    cspec=cspec)
@@ -273,8 +293,10 @@ def apply_layer_seq(lp, h, layer: LayerSpec, cfg: ModelConfig, positions, *,
     (``models/partition.py``) ``lp`` holds the layer's parameters gathered
     over the batch axes, and each piece runs on this rank's share of
     ``model``; the cache then holds this rank's heads or channels where
-    they are split, whole sequences (the step cuts them)."""
-    xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
+    they are split, whole sequences (the step cuts them).  Under
+    ``part.seq`` h is this rank's rows and ``memory`` its frames;
+    ``positions`` cover the whole sequence."""
+    xin = _norm(h, lp["norm1"], cfg, part)
     cache = {} if want_cache else None
     if layer.mixer == "attn":
         if cfg.attn.kind == "mla":
@@ -368,18 +390,21 @@ def apply_layer_decode(lp, h, layer: LayerSpec, cfg: ModelConfig, positions,
     return h + cm_out
 
 
-def _logits(params, cfg: ModelConfig, h, part=None):
+def _logits(params, cfg: ModelConfig, h, part=None, last=None):
     """h: [..., d] -> f32 logits [..., V] (upcast before the softcap).
     With ``part``: the head (or the tied embedding) gathered at use, and
     this rank's block of the vocabulary when it is split over ``model``
-    (``[..., V / m]``)."""
+    (``[..., V / m]``); under ``part.seq`` h [B, S/m, d] is gathered
+    along S first.  ``last``: the logits of the last ``last`` positions
+    of h [B, S, d] only."""
     name = "embed" if cfg.tie_embeddings else "lm_head"
     w = params[name]
     if part is not None:
         w = part.gather_params(w, part.specs[name])
         vl = w.shape[0] if cfg.tie_embeddings else w.shape[1]
-        if vl != cfg.vocab_size:
-            h = part.f(h)
+        h = part.enter(h, vl != cfg.vocab_size)
+    if last is not None:
+        h = h[:, -last:]
     if cfg.tie_embeddings:
         logits = einsum("...d,vd->...v", h, w)
     else:
@@ -539,18 +564,31 @@ def _use(params, name: str, part):
 def _merge_frontend(params, cfg: ModelConfig, tokens, embeds=None,
                     part=None):
     """VLM: project the patch embeds [B,P,E] and put them before the token
-    embeddings; without embeds (or a frontend) the token embeddings."""
-    h_tok = embed_tokens(params, cfg, tokens, part)
+    embeddings; without embeds (or a frontend) the token embeddings.
+    Under ``part.seq``: this rank's rows of them (the patch prefix and the
+    tokens made whole first)."""
     if embeds is None or cfg.frontend.kind == "none":
-        return h_tok
+        return embed_tokens(params, cfg, tokens, part)
+    if part is not None:
+        part.check_seq(embeds.shape[1] + tokens.shape[1],
+                       "patch prefix and sequence")
+    h_tok = embed_tokens(params, cfg, tokens,
+                         part if part is None else part.whole_seq())
     proj = einsum("bpe,ed->bpd", embeds.to(torch_dtype(cfg.dtype)),
                   _use(params, "frontend_proj", part))
-    return torch.cat([proj, h_tok], dim=1)
+    h = torch.cat([proj, h_tok], dim=1)
+    return h if part is None else part.leave(h, False)
 
 
-def _positions(h):
-    """[B,S] int32, each row ``arange(S)``, for h [B,S,d]."""
-    b, s = h.shape[:2]
+def _length(h, part) -> int:
+    """The whole sequence's length of the stream h [B, S(/m), d]."""
+    return h.shape[1] * (part.m if part is not None and part.seq else 1)
+
+
+def _positions(h, part=None):
+    """[B,S] int32, each row ``arange(S)``, for h [B,S,d] (S the whole
+    sequence's length under ``part.seq``)."""
+    b, s = h.shape[0], _length(h, part)
     return torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
 
 
@@ -558,7 +596,7 @@ def _encoder_layer(lp, h, cfg: ModelConfig, positions, impl: str, part):
     if part is not None:
         lp = part.gather_params(lp, part.specs["encoder"]["period"]["sub0"],
                                 stacked=True)
-    xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
+    xin = _norm(h, lp["norm1"], cfg, part)
     out, _ = attn_mod.gqa_prefill(lp["attn"], xin, positions, ENCODER_LAYER,
                                   cfg, causal=False, impl=impl, part=part)
     return _apply_ffn(lp, h + out, ENCODER_LAYER, cfg, part)
@@ -571,10 +609,14 @@ def encode(params, cfg: ModelConfig, frames, *, impl: str = "auto",
     self-attention (RoPE at positions ``arange(F)``, the flash kernel) and
     a dense FFN; returns the normed memory [B,F,d].  With ``part`` each
     layer gathers its parameters alone and runs as a decoder layer does,
-    under remat checkpointed as a period repeat is."""
+    under remat checkpointed as a period repeat is; under ``part.seq``
+    the memory is this rank's frames."""
     h = einsum("bfe,ed->bfd", frames.to(torch_dtype(cfg.dtype)),
                _use(params, "frontend_proj", part))
     positions = _positions(h)
+    if part is not None:
+        part.check_seq(h.shape[1], "encoder's frames")
+        h = part.leave(h, False)
     enc = params["encoder"]
     # per-layer views by one unbind a leaf, as _period_repeats
     layers = map_plan(lambda a: a.unbind(0), enc["period"]["sub0"])
@@ -587,7 +629,7 @@ def encode(params, cfg: ModelConfig, frames, *, impl: str = "auto",
             h = _encoder_layer(lp, h, cfg, positions, impl, part)
     norm = (enc["final_norm"] if part is None else part.gather_params(
         enc["final_norm"], part.specs["encoder"]["final_norm"]))
-    return rms_norm(h, norm, cfg.norm_eps)
+    return _norm(h, norm, cfg, part)
 
 
 def train_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
@@ -608,14 +650,21 @@ def train_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
     else:
         h = _merge_frontend(params, cfg, batch["tokens"],
                             batch.get("embeds"), part)
-    h, _, aux = forward_seq(params, cfg, h, _positions(h), seq_cap=h.shape[1],
-                            memory=memory, impl=impl, want_cache=False,
-                            remat=remat, part=part)
+    h, _, aux = forward_seq(params, cfg, h, _positions(h, part),
+                            seq_cap=_length(h, part), memory=memory,
+                            impl=impl, want_cache=False, remat=remat,
+                            part=part)
     s_text = batch["labels"].shape[1]
-    # the norm and the logits are per position: only the text rows' are made
-    h = rms_norm(h[:, -s_text:], _use(params, "final_norm", part),
-                 cfg.norm_eps)
-    logits = _logits(params, cfg, h, part)
+    if part is not None and part.seq:
+        # the rows are this rank's: normed here, gathered by the head
+        h = _norm(h, _use(params, "final_norm", part), cfg, part)
+        logits = _logits(params, cfg, h, part, last=s_text)
+    else:
+        # the norm and the logits are per position: only the text rows'
+        # are made
+        h = rms_norm(h[:, -s_text:], _use(params, "final_norm", part),
+                     cfg.norm_eps)
+        logits = _logits(params, cfg, h, part)
     if part is None:
         return cross_entropy_loss(logits, batch["labels"]) + aux
     return _vocab_parallel_loss(cfg, logits, batch["labels"], part) + aux
@@ -631,16 +680,20 @@ def prefill(params, cfg: ModelConfig, tokens, *, embeds=None, frames=None,
     ``seq_cap``; an enc-dec cache also holds each layer's ``cross`` K/V
     over the F frames).  With ``part`` the cache holds this rank's rows,
     its heads or channels where they are split over ``model``, and whole
-    sequences; the logits are whole."""
+    sequences; the logits are whole (under ``part.seq`` the last
+    position's row comes from the last ``model`` rank)."""
     memory = None
     if cfg.encoder is not None:
         memory = encode(params, cfg, frames, impl=impl, part=part)
         h = embed_tokens(params, cfg, tokens, part)
     else:
         h = _merge_frontend(params, cfg, tokens, embeds, part)
-    h, caches, _ = forward_seq(params, cfg, h, _positions(h),
-                               seq_cap=seq_cap or h.shape[1], memory=memory,
-                               impl=impl, part=part)
+    h, caches, _ = forward_seq(params, cfg, h, _positions(h, part),
+                               seq_cap=seq_cap or _length(h, part),
+                               memory=memory, impl=impl, part=part)
+    if part is not None and part.seq:
+        h = part.gather_model(h[:, -1:], 1)[:, -1:]
+        part = part.whole_seq()
     h = rms_norm(h, _use(params, "final_norm", part), cfg.norm_eps)
     return _whole_logits(cfg, _logits(params, cfg, h[:, -1], part),
                          part), caches
@@ -654,7 +707,10 @@ def decode_step(params, cfg: ModelConfig, cache, token, positions, *,
     this token into ``cache`` in place and returns logits [B,V] f32.
     With ``part``, ``cache`` is this rank's stored shard (its specs in
     ``part.cache_specs``), each layer gathers its parameters alone, and
-    the logits are whole."""
+    the logits are whole.  A ``part`` with a split sequence decodes with
+    it whole."""
+    if part is not None:
+        part = part.whole_seq()
     h = embed_tokens(params, cfg, token[:, None], part)
     for lp, layer, lc, (group, key, r) in layer_walk(cfg, params, cache):
         cspec = None

@@ -26,7 +26,12 @@ and combines, for every token, the share of its output that the block
 holds; the shares meet in a reduce-scatter over the batch axes, which
 brings each token's output back to the rank that owns its row, and a sum
 over ``model``.  Shared experts run column- then row-parallel on the
-rank's own rows.  Without ``part`` nothing is gathered.
+rank's own rows.  Without ``part`` nothing is gathered.  Under sequence
+parallelism (``part.seq``) the rank's rows of the stream are gathered
+along S first (so the routing, the capacity and the drops are the
+whole batch's, as in the reference), and the routed and the shared
+outputs each leave through a reduce-scatter along S where ``g`` sums
+them otherwise.
 """
 from __future__ import annotations
 
@@ -124,8 +129,10 @@ def _moe_part(params, x, spec: FFNSpec, part):
     """``moe_ffn`` on a sharded step: global routing, this rank's block of
     the buffer, each token's share of it summed back to the token's
     rank."""
-    b, s, d = x.shape
-    own_tokens = x.reshape(-1, d)
+    xe = part.enter(x)                  # for the split shared experts
+    xa = part.alike(xe, x)              # routed alike on every rank
+    b, s, d = xa.shape
+    own_tokens = xa.reshape(-1, d)
     own = own_tokens.shape[0]
     tokens = part.gather_rows(own_tokens)            # [T, d], every rank's
     t, k, e = tokens.shape[0], spec.top_k, spec.num_experts
@@ -164,17 +171,16 @@ def _moe_part(params, x, spec: FFNSpec, part):
         g = part.f(g)
     out = einsum("tkd,tk->td", picked.reshape(t, k, d), g)
     out = coll.scatter_sum(out, part.row_groups, 0)   # this rank's rows
-    if ep or tp:
-        out = part.g(out)
+    out = part.leave(out.reshape(b, s, d), ep or tp)
     if spec.num_shared_experts:
         split = params["shared_wi"].shape[2] != (
             spec.d_ff * spec.num_shared_experts)
-        xs = part.f(own_tokens) if split else own_tokens
+        xs = (xe if split else xa).reshape(-1, d)
         gu_s = einsum("td,dgf->tgf", xs, params["shared_wi"])
         hs = act_fn(spec.activation)(gu_s[:, 0]) * gu_s[:, 1]
         shared = einsum("tf,fd->td", hs, params["shared_wo"])
-        out = out + (part.g(shared) if split else shared)
-    return out.reshape(b, s, d), aux
+        out = out + part.leave(shared.reshape(b, s, d), split)
+    return out, aux
 
 
 def moe_ffn(params, x, spec: FFNSpec, cfg: ModelConfig, *, part=None):

@@ -21,6 +21,19 @@ The rules the model functions follow:
   partial sums of a row-parallel product meet in ``reduce_from`` (``g``);
 * a dim that resolved to replicated is computed whole.
 
+Under Megatron's sequence parallelism (the policy's ``act`` names a live
+``model`` axis on the sequence, in train and prefill: ``seq``) the
+residual stream is ``[B, S/m, d]`` on each ``model`` rank and only its
+boundaries change: a block takes its input through ``enter`` (f, or
+here an all-gather along S whose backward reduce-scatters) and gives its
+output through ``leave`` (g, or here a reduce-scatter along S whose
+backward all-gathers).  A block that every ``model`` rank computes alike
+(its dims not split) enters by an all-gather whose backward keeps this
+rank's rows and leaves by taking this rank's rows.  Every weight applied
+to this rank's rows of the stream (the norms, MLA's latent projections,
+an embedding whose vocabulary is whole) is taken through ``shared``, so
+that its gradient, each rank's rows' share, is summed over ``model``.
+
 Whether a leaf is split over ``model`` is read from its local shape
 against the config's, so an extent of 1 is the whole path.
 
@@ -30,6 +43,7 @@ and takes them off when it is freed.
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
@@ -76,6 +90,8 @@ class Part:
     policy: ShardPolicy
     specs: Any                         # the parameters' resolved specs
     cache_specs: Any = None            # the decode cache's, when serving
+    seq: bool = False                  # the residual stream split along S
+    #                                    over `model` (sequence parallelism)
 
     # ---- axes and groups
     def live(self, entry) -> Tuple[str, ...]:
@@ -125,6 +141,60 @@ class Part:
 
     def g(self, x):
         return coll.reduce_from(x, self.tp)
+
+    # ---- the residual stream's boundaries
+    def enter(self, x, split: bool = True):
+        """The residual stream ``x`` [B, S, ...] into a block.  ``split``:
+        the block's dims are split over ``model`` (f; under ``seq`` the
+        all-gather along S, backward reduce-scatter); else every rank
+        computes it alike (``x``; under ``seq`` the all-gather along S,
+        backward this rank's rows)."""
+        if not self.seq:
+            return self.f(x) if split else x
+        return coll.gather(x, self.tp, 1, backward="reduce_scatter"
+                           if split else "split")
+
+    def leave(self, x, split: bool = True):
+        """A block's output [B, S, ...] back to the residual stream:
+        ``split`` (partial sums): g, under ``seq`` the reduce-scatter
+        along S; else (alike on every rank) ``x``, under ``seq`` this
+        rank's rows."""
+        if not self.seq:
+            return self.g(x) if split else x
+        if split:
+            return coll.scatter_sum(x, self.tp, 1)
+        return coll.split_to(x, self.tp, 1)
+
+    def alike(self, xe, x):
+        """The input of compute that every ``model`` rank does alike
+        inside a split block and meets the split compute through ``f``
+        (K/V heads that do not divide ``model``, the MoE routing): ``x``;
+        under ``seq`` the entered ``xe`` with only this rank's rows of its
+        cotangent kept, so that the entry's reduce-scatter counts each
+        row once."""
+        return coll.keep_own(xe, self.tp, 1) if self.seq else x
+
+    def shared(self, w):
+        """A weight every ``model`` rank holds whole, applied to this
+        rank's rows of a split stream: identity, its gradient summed over
+        ``model`` (f on the weight)."""
+        return coll.copy_to(w, self.tp) if self.seq else w
+
+    def seq_rows(self, t):
+        """This rank's rows of ``t`` along S (dim 1), no gradient
+        (positions, tokens)."""
+        return coll.own_block(t, self.tp, 1) if self.seq else t
+
+    def check_seq(self, n: int, what: str) -> None:
+        if self.seq and n % self.m:
+            raise ValueError(
+                f"sequence parallelism splits the {what} over `model`: "
+                f"{n} positions do not divide {self.m} ranks (ROADMAP C1)")
+
+    def whole_seq(self) -> "Part":
+        """This partition with the sequence whole (decode, or a tensor
+        already gathered along S)."""
+        return dataclasses.replace(self, seq=False) if self.seq else self
 
     def model_slice(self, x, dim: int):
         """This rank's block of a whole tensor along ``dim`` (backward:
@@ -194,5 +264,8 @@ def make_part(mesh, policy: ShardPolicy, specs, rows=None,
     if rows is None:
         rows = tuple(a for a in BATCH_AXES if a in names)
     rows = tuple(a for a in rows if sizes[a] > 1)
+    act = policy.act or ()
+    seq = (len(act) > 1 and "model" in _axes(act[1])
+           and sizes.get("model", 1) > 1)
     return Part(sizes=sizes, coord=coord, groups=groups, rows=rows,
-                policy=policy, specs=specs, cache_specs=cache_specs)
+                policy=policy, specs=specs, cache_specs=cache_specs, seq=seq)

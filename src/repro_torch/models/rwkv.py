@@ -20,7 +20,11 @@ the matching slice of ``ln_x``, ``wo`` row-parallel and a sum; the
 channel-mix runs ``cm_wk`` column- and ``cm_wv`` row-parallel, and the
 receptance, split by ``cm_wr``'s columns, is gathered over ``model`` to
 gate the summed output (it is the smaller operand).  The token-shift
-states stay whole.
+states stay whole.  Under sequence parallelism (``part.seq``) both mixes
+gather their input, this rank's rows, along S before the token shift
+(which needs the previous token across a shard boundary) and give this
+rank's rows of their output back, the partial sums through a
+reduce-scatter along S.
 
 One deliberate difference: the shift states take the model dtype, where
 the JAX plan fixes them at bfloat16.  For every bf16 config the two are the
@@ -140,6 +144,9 @@ def rwkv_time_mix(params, x, state_shift, state_wkv, cfg: ModelConfig, *,
                   impl: str = "auto", part=None):
     """x: [B,S,d].  Returns (out, (new_shift, new_wkv)); with ``part`` the
     WKV state holds this rank's heads when they are split."""
+    whole = part
+    if whole is not None:
+        x = whole.enter(x, False)
     part = _split(params, "wr", cfg.d_model, part)
     heads = params["u"].shape[0]
     if part is not None and heads * _dims(cfg)[1] != params["wr"].shape[1]:
@@ -153,14 +160,16 @@ def rwkv_time_mix(params, x, state_shift, state_wkv, cfg: ModelConfig, *,
         params["ln_x"], 0)
     y = _group_norm(y, ln_x, heads).to(x.dtype) * g
     out = _mm(y, params["wo"])
-    if part is not None:
-        out = part.g(out)
+    if whole is not None:
+        out = whole.leave(out, part is not None)
     return out, (x[:, -1], s_final)
 
 
 def rwkv_channel_mix(params, x, state_shift, *, cfg=None, part=None):
     """RWKV channel-mix FFN.  x: [B,S,d].  With ``part`` (and ``cfg``),
     on this rank's columns where ``cm_wr`` / ``cm_wk`` are split."""
+    if part is not None:
+        x = part.enter(x, False)
     mu = params["cm_mu"]
     xr = _token_shift(x, state_shift, mu[0])
     xk = _token_shift(x, state_shift, mu[1])
@@ -172,8 +181,9 @@ def rwkv_channel_mix(params, x, state_shift, *, cfg=None, part=None):
         r = pr.gather_model(r, r.dim() - 1)
     kk = torch.square(F.relu(_mm(_f(xk, pk), params["cm_wk"])))
     o = _mm(kk, params["cm_wv"])
-    if pk is not None:
-        o = pk.g(o)
+    if part is not None:
+        o = part.leave(o, pk is not None)
+        r = part.leave(r, False)
     out = r * o
     return out, x[:, -1]
 

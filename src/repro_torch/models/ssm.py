@@ -17,7 +17,10 @@ With a sharded step's ``part`` (``models/partition.py``) a layer whose
 ``A_log``, ``D`` and the scan on its ``d_inner / m`` channels; ``x_proj``
 contracts over ``d_inner``, so its ``dt | B | C`` output is summed over
 ``model`` before use; ``out_proj`` row-parallel, then a sum; the conv and
-ssm states hold the rank's channels.
+ssm states hold the rank's channels.  Under sequence parallelism
+(``part.seq``) the layer's input, this rank's rows, is gathered along S
+first (the causal conv needs the whole sequence) and its output leaves
+through a reduce-scatter along S.
 
 One deliberate difference: the conv state takes the model dtype, where the
 JAX plan fixes it at bfloat16.  For every bf16 config the two are the
@@ -113,11 +116,12 @@ def mamba_prefill(params, x, cfg: ModelConfig, conv_init=None,
     """x: [B,S,d].  Returns (out [B,S,d], state {conv, ssm} for decode);
     with ``part`` on this rank's channels when ``d_inner`` is split."""
     m = cfg.mamba
-    if part is not None and params["in_proj"].shape[2] == _dims(cfg)[0]:
+    whole, split = part, (part is not None
+                          and params["in_proj"].shape[2] != _dims(cfg)[0])
+    if not split:
         part = None                       # d_inner whole: computed whole
-    if part is not None:
-        x = part.f(x)
-    xz = einsum("bsd,dci->bsci", x, params["in_proj"])
+    xe = x if whole is None else whole.enter(x, split)
+    xz = einsum("bsd,dci->bsci", xe, params["in_proj"])
     xin, z = xz[..., 0, :], xz[..., 1, :]                    # [B,S,d_inner]
     pad = m.d_conv - 1
     if conv_init is not None:
@@ -134,8 +138,8 @@ def mamba_prefill(params, x, cfg: ModelConfig, conv_init=None,
         None if ssm_init is None else ssm_init.contiguous(), impl=impl)
     y = y.to(x.dtype) * F.silu(z)
     out = einsum("bsd,do->bso", y, params["out_proj"])
-    if part is not None:
-        out = part.g(out)
+    if whole is not None:
+        out = whole.leave(out, split)
     # conv tail: last (d_conv-1) inputs, shape [B, d_inner, d_conv-1]
     state = {"conv": xpad[:, -pad:].transpose(1, 2).contiguous(),
              "ssm": h_final}

@@ -38,6 +38,19 @@ leaves, so its first enc-dec prefill fails to merge, and it would decode
 from ``prompt_len``.)  Page accounting stays the reference's:
 prompt+max_new pages reserved at submit, whatever the model.
 
+Serving on a live ``model`` mesh (``policy=`` and ``mesh=``, the
+reference's keyword; ROADMAP A7.7): every rank builds the same engine and
+is given the same requests, runs the same scheduler, and stores its share
+of the parameters (``shard_tree`` of their resolved specs), of the slot
+cache (``cache_plan(..., policy)``'s specs) or of the page pools (its KV
+heads); the model functions run on its shares through a
+``models/partition.py::Part`` and every rank reads the whole logits.  The
+mesh's batch axes must have one rank (lanes split over ``data`` are
+replicas, which the harness runs as separate engines), the policy must
+be ``make_policy``'s for a decode shape on that mesh, and the paged
+backend needs the KV heads to divide ``model``.  Without a mesh the
+policy changes nothing, as the reference's ``shard()`` outside a mesh.
+
 Guardrail hook (paper §2.2, MPS-quota analogue): ``set_quota(frac)`` caps
 the engine's concurrency, as in the reference: the number of active decode
 slots (dense) or running lanes (paged) scales with the quota, bounding
@@ -45,6 +58,7 @@ occupancy the way CUDA_MPS_ACTIVE_THREAD_PERCENTAGE bounds SM occupancy.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -53,10 +67,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, cache_plan, decode_step, prefill
-from repro_torch.models.params import P, map_plan, torch_dtype
+from repro_torch.launch.mesh import batch_axes, mesh_view
+from repro_torch.launch.shardings import (axes_of, make_policy, shard_tree,
+                                          zip_map)
+from repro_torch.launch.steps import cut_to_stored
+from repro_torch.models.common import NO_POLICY, ShardPolicy
+from repro_torch.models.model import (Model, cache_plan, decode_step,
+                                      model_plan, prefill)
+from repro_torch.models.params import (P, map_plan, pspecs_from_plan,
+                                       torch_dtype)
+from repro_torch.models.partition import make_part
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.metrics import TenantMetrics
 from repro_torch.serving.request import (ADMITTED, EXCEEDS_SEQ_CAP,
@@ -72,6 +94,76 @@ def init_cache_from_plan(plan, device):
         return torch.zeros(p.shape, dtype=torch_dtype(p.dtype),
                            device=device)
     return map_plan(leaf, plan)
+
+
+def serving_part(cfg: ModelConfig, policy: ShardPolicy, mesh, backend: str):
+    """The partition an engine serves under on a live mesh (its cache
+    specs not yet set), or None without a mesh.  Refuses (``ValueError``,
+    naming ROADMAP A7.7) a mesh without a policy, a mesh whose batch axes
+    have more than one rank, a policy other than ``make_policy``'s for a
+    decode shape on the mesh, and, in the paged backend, KV heads that do
+    not divide ``model``."""
+    if mesh is None:
+        return None
+    view = mesh_view(mesh)
+    if policy is None or policy == NO_POLICY:
+        raise ValueError("a mesh needs a policy (make_policy of a decode "
+                         "shape on it) to serve under (ROADMAP A7.7)")
+    wide = [a for a in batch_axes(view) if view.shape[a] > 1]
+    if wide:
+        raise ValueError(
+            f"batch axes {wide} have more than one rank: lanes split over "
+            f"them are replicas, served as separate engines (ROADMAP A7.7)")
+    decode = [make_policy(cfg, InputShape("serve", 2, b, "decode"), view)
+              for b in (2, 1)]
+    if policy not in decode:
+        act = policy.act or ()
+        why = ("splits the sequence (a train or prefill step's "
+               "seq_parallel)" if len(act) > 1 and act[1] is not None
+               else "is not make_policy's for a decode shape on this mesh")
+        raise ValueError(f"the policy {why}; an engine serves under "
+                         f"{decode[0]} (ROADMAP A7.7)")
+    m = view.shape.get("model", 1)
+    if backend == "paged" and cfg.attn.num_kv_heads % m:
+        raise ValueError(
+            f"{cfg.attn.num_kv_heads} KV heads do not divide {m} `model` "
+            f"ranks: the policy would split the cache's sequence, and pages "
+            f"do not split that way (ROADMAP A7.7)")
+    return make_part(mesh, policy, pspecs_from_plan(model_plan(cfg), mesh))
+
+
+def local_plan(plan, specs, mesh):
+    """``plan`` with each leaf's shape cut to this rank's shard under its
+    resolved spec."""
+    sizes = mesh_view(mesh).shape
+
+    def leaf(p: P, spec) -> P:
+        shape = list(p.shape)
+        for dim, entry in enumerate(spec):
+            for a in axes_of(entry):
+                shape[dim] //= sizes[a]
+        return dataclasses.replace(p, shape=tuple(shape))
+    return zip_map(leaf, plan, specs)
+
+
+def _pad_frames(cache1, frames: int):
+    """An enc-dec prefill cache with its cross-attention K/V padded with
+    zero frames to the slot's ``frames`` (the rest of the slot is masked
+    by ``cross_len``), so that a split of the frames cuts it as the slot
+    cache is cut."""
+    def walk(tree):
+        out = {}
+        for key, val in tree.items():
+            if key in ("ck", "cv"):
+                dim = val.dim() - 3
+                pad = list(val.shape)
+                pad[dim] = frames - val.shape[dim]
+                val = torch.cat([val, val.new_zeros(pad)], dim=dim)
+            elif isinstance(val, dict):
+                val = walk(val)
+            out[key] = val
+        return out
+    return walk(cache1)
 
 
 def _copy_leaves(dst, src, write) -> None:
@@ -124,7 +216,11 @@ class ServingEngine:
     on ``device`` from a ``torch.Generator`` seeded with ``seed``.
 
     ``attn_impl`` routes every kernel of the path ("auto": the CUDA kernel
-    on CUDA tensors, the plain version on the CPU; "kernel"; "ref")."""
+    on CUDA tensors, the plain version on the CPU; "kernel"; "ref").
+
+    ``policy`` and ``mesh``: serve on a live ``model`` mesh (module
+    docstring; ``serving_part`` says what is refused); ``params`` are then
+    the whole weights and ``self.params`` this rank's shards."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, max_slots: int = 8,
                  seq_cap: int = 256, page_size: int = 16, seed: int = 0,
@@ -133,7 +229,7 @@ class ServingEngine:
                  step_tokens: Optional[int] = None, attn_impl: str = "auto",
                  kv_dtype: str = "auto", prefix_cache: bool = True,
                  spec_k: int = 0, spec_ngram: int = 3, response_cache=None,
-                 device="cuda"):
+                 policy: ShardPolicy = NO_POLICY, mesh=None, device="cuda"):
         if backend not in ("dense", "paged"):
             raise ValueError(f"unknown backend {backend!r}")
         if kv_dtype != "auto" and backend == "dense":
@@ -163,9 +259,14 @@ class ServingEngine:
             # before any weight is made
             from repro_torch.serving.paged_runtime import refuse_unsupported
             refuse_unsupported(cfg)
+        self.policy, self.mesh = policy, mesh
+        self.part = serving_part(cfg, policy, mesh, backend)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg, params, seed=seed, device=self.device)
+        if self.part is not None:
+            self.model = Model(cfg, shard_tree(
+                self.model.params, self.part.specs, mesh), device=self.device)
         self.params = self.model.params
         self.max_slots = max_slots
         self.seq_cap = seq_cap
@@ -190,8 +291,7 @@ class ServingEngine:
                 attn_impl=attn_impl, kv_dtype=kv_dtype,
                 prefix_cache=prefix_cache, spec_k=spec_k,
                 spec_ngram=spec_ngram, response_cache=self.response_cache,
-                seed=seed,
-                device=self.device)
+                seed=seed, policy=policy, mesh=mesh, device=self.device)
             self.kv = self.runtime.kv
             # the scheduler's waiting deque doubles as the engine queue
             # (the same object for the engine's lifetime), so load-based
@@ -211,8 +311,16 @@ class ServingEngine:
         # an enc-dec slot holds up to seq_cap frames, cross_len[slot] of
         # them valid
         enc_cap = seq_cap if cfg.encoder is not None else 0
-        self.cache = init_cache_from_plan(
-            cache_plan(cfg, max_slots, seq_cap, enc_cap), self.device)
+        self.enc_cap = enc_cap
+        cplan = cache_plan(cfg, max_slots, seq_cap, enc_cap, policy=policy)
+        if self.part is not None:
+            c_specs = pspecs_from_plan(cplan, mesh)
+            self.part = dataclasses.replace(self.part, cache_specs=c_specs)
+            # (plan leaf, stored spec) per leaf, for cutting a prefill's
+            # cache to this rank's share of the slot cache
+            self._c_leaves = zip_map(lambda p, sp: (p, sp), cplan, c_specs)
+            cplan = local_plan(cplan, c_specs, mesh)
+        self.cache = init_cache_from_plan(cplan, self.device)
         self.cross_len = (torch.zeros(max_slots, dtype=torch.int32,
                                       device=self.device)
                           if enc_cap else None)
@@ -385,9 +493,17 @@ class ServingEngine:
         along axis 1: writing it along axis 0 would put one request's KV on
         the repeats axis of every slot.  A leaf shorter than its slot (the
         cross-attention K/V of F < enc_cap frames) fills the slot's leading
-        rows; the rest is masked by ``cross_len``."""
+        rows; the rest is masked by ``cross_len``.  On a mesh the prefill's
+        leaves are cut to this rank's share of the slot cache first (its
+        heads come out local; a sequence the cache splits is cut)."""
         def into(dst, src):
             dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+        if self.part is not None:
+            if self.enc_cap:
+                cache1 = _pad_frames(cache1, self.enc_cap)
+            cache1 = zip_map(
+                lambda t, ps: cut_to_stored(t, ps[0], ps[1], self.part),
+                cache1, self._c_leaves)
         if "prefix" in self.cache:
             _copy_leaves(self.cache["prefix"], cache1["prefix"],
                          lambda full, one: into(full[slot], one[0]))
@@ -424,7 +540,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         logits, cache1 = prefill(self.params, self.cfg, tokens,
                                  seq_cap=self.seq_cap, impl=self.attn_impl,
-                                 **kw)
+                                 part=self.part, **kw)
         self._merge_slot_cache(cache1, slot)
         if self.cross_len is not None:
             self.cross_len[slot] = req.prompt_len
@@ -455,7 +571,8 @@ class ServingEngine:
         self._sync()
         t0 = time.perf_counter()
         logits = decode_step(self.params, self.cfg, self.cache, toks, pos,
-                             cross_len=self.cross_len, impl=self.attn_impl)
+                             cross_len=self.cross_len, impl=self.attn_impl,
+                             part=self.part)
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         self._sync()
         dt = time.perf_counter() - t0

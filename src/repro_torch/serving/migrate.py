@@ -162,6 +162,17 @@ class LaneManifest:
         return np.concatenate([prm, out])[: self.cache_tokens]
 
 
+def refuse_split_heads(runtime) -> None:
+    """A lane's pages ship whole heads; a runtime whose pools hold a
+    ``model`` rank's share of them (a live mesh) is refused."""
+    part = getattr(runtime, "part", None)
+    if part is not None and part.m > 1:
+        raise ValueError(
+            "the lane format holds every KV head; this runtime's pools "
+            f"hold 1/{part.m} of them (a live `model` mesh): its lanes "
+            "are not exported or imported (ROADMAP A7.7)")
+
+
 class PageExporter:
     """Serialize a paged runtime's resident lanes into
     :class:`LaneManifest` objects.  Must run BEFORE
@@ -169,6 +180,7 @@ class PageExporter:
     manifest snapshots."""
 
     def __init__(self, runtime):
+        refuse_split_heads(runtime)
         self.rt = runtime
 
     def export_lane(self, seq: SeqState) -> LaneManifest:
@@ -244,6 +256,7 @@ class PageImporter:
     call."""
 
     def __init__(self, runtime):
+        refuse_split_heads(runtime)
         self.rt = runtime
         self.imported_lanes = 0
         self.imported_pages = 0

@@ -40,6 +40,16 @@ Differences from the JAX runtime, none of which changes a result:
 
 Only pure-GQA decoder stacks are supported (no MLA / SSM / RWKV mixers, no
 sliding windows, no cross-attention), as in the JAX runtime.
+
+On a live ``model`` mesh (``policy=`` and ``mesh=``, as the engine takes
+them; ``serving/engine.py::serving_part``) ``params`` are this rank's
+shards and the pools hold its KV heads, ``[(repeats,) pool_pages+1, page,
+KV/m, hd]``: each layer projects Q/K/V for the rank's heads, writes its
+pages, runs paged attention on them (the kernel unchanged, at the
+per-rank shape), and meets ``wo``'s partial sums in an all-reduce; the
+FFN runs as the model's layer pieces run it under ``part``, and the
+vocabulary is gathered before the argmax and the verify.  Every rank
+runs the same scheduler on the same requests.
 """
 from __future__ import annotations
 
@@ -53,11 +63,12 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_attention_mixed
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import apply_rope, einsum, rms_norm
-from repro_torch.models.model import (_apply_ffn, _logits, embed_tokens,
-                                      layer_walk)
+from repro_torch.models.common import (NO_POLICY, ShardPolicy, apply_rope,
+                                      einsum, rms_norm)
+from repro_torch.models.model import (_apply_ffn, _logits, _whole_logits,
+                                      embed_tokens, layer_walk)
 from repro_torch.models.params import torch_dtype
-from repro_torch.serving.engine import StepReport
+from repro_torch.serving.engine import StepReport, serving_part
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.request import EXCEEDS_SEQ_CAP, Request, SubmitOutcome
 from repro_torch.serving.sched import (PagedScheduler, SchedConfig,
@@ -136,8 +147,10 @@ class PagedRuntime:
                  step_tokens: Optional[int] = None, attn_impl: str = "auto",
                  kv_dtype: str = "auto", prefix_cache: bool = True,
                  spec_k: int = 0, spec_ngram: int = 3, response_cache=None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, policy: ShardPolicy = NO_POLICY, mesh=None,
+                 device="cuda"):
         refuse_unsupported(cfg)
+        self.part = serving_part(cfg, policy, mesh, "paged")
         if kv_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
                              f"(expected 'auto' or 'int8')")
@@ -177,8 +190,9 @@ class PagedRuntime:
     def _init_pools(self) -> Dict[str, Any]:
         a = self.cfg.attn
         dt = torch.int8 if self.kv_quant else torch_dtype(self.cfg.dtype)
-        shape = (self.pool_pages + 1, self.page, a.num_kv_heads, a.head_dim)
-        sshape = (self.pool_pages + 1, self.page, a.num_kv_heads)
+        kv = a.num_kv_heads // (self.part.m if self.part is not None else 1)
+        shape = (self.pool_pages + 1, self.page, kv, a.head_dim)
+        sshape = (self.pool_pages + 1, self.page, kv)
         dev = self.device
 
         def pool(stack: int = 0):
@@ -265,20 +279,24 @@ class PagedRuntime:
         ctx = ctx.reshape(n_lanes * q_len, *q.shape[1:]).index_select(
             0, scatter)                                          # [T, H, hd]
         out = einsum("thk,hkd->td", ctx.to(h.dtype), ap["wo"])
+        if self.part is not None:
+            out = self.part.g(out)
         h = h + out
-        return _apply_ffn(lp, h, layer, cfg)
+        return _apply_ffn(lp, h, layer, cfg, self.part)
 
     @torch.no_grad()
     def _mixed_impl(self, tokens, qpos, page_ids, offs, lanes, last_rows):
         """tokens/qpos/page_ids/offs [T] (qpos: pad rows at 0), ``lanes``
         the lane-major call's arrays (``_mixed_layer``), last_rows [N] ->
         logits [N, V] f32."""
-        h = embed_tokens(self.params, self.cfg, tokens)
+        part = self.part
+        h = embed_tokens(self.params, self.cfg, tokens, part)
         for lp, layer, pool in self._layers:
             h = self._mixed_layer(lp, h, layer, qpos, page_ids, offs, lanes,
                                   pool)
         h = rms_norm(h, self.params["final_norm"], self.cfg.norm_eps)
-        return _logits(self.params, self.cfg, h[last_rows])
+        return _whole_logits(self.cfg, _logits(self.params, self.cfg,
+                                               h[last_rows], part), part)
 
     # ------------------------------------------------------------ engine API
     def submit(self, req: Request) -> SubmitOutcome:

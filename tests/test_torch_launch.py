@@ -290,3 +290,68 @@ def test_collective_bytes_hand_count_reduced_stablelm_2x2():
         MeshShape(("data", "model"), (2, 2)))
     assert got == {"all_gather": want_ag, "reduce_scatter": want_rs,
                    "all_reduce": want_ar}
+
+
+# ---- the policy the step follows (build_step's policy_override)
+
+# StableLM-3B and benchmarks/hillclimb.py's three pairs
+SEQ_PARALLEL = (("stablelm_3b", "train_4k"),
+                ("deepseek_v2_236b", "train_4k"),
+                ("mixtral_8x7b", "prefill_32k"),
+                ("jamba_v0_1_52b", "train_4k"))
+
+
+@pytest.mark.parametrize("arch,shape", SEQ_PARALLEL)
+def test_seq_parallel_dryrun_moves_the_all_reduce(arch, shape):
+    """Under ``seq_parallel`` the dry run counts the policy it is given:
+    the tensor-parallel all-reduces become all-gathers plus
+    reduce-scatters along the sequence, which by the ring rules move as
+    many bytes, so the total stays within a few percent."""
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg, shp = t_get_config(arch), T_SHAPES[shape]
+    policy = make_policy(cfg, shp, make_production_mesh(), seq_parallel=True)
+    base = t_dryrun.dryrun(arch, shape, verbose=False)
+    sp = t_dryrun.dryrun(arch, shape, verbose=False, policy_override=policy)
+    a, b = (r["collective_bytes_per_device"] for r in (base, sp))
+    assert a != b
+    assert b["all_reduce"] < a["all_reduce"]
+    assert b["all_gather"] > a["all_gather"]
+    assert b["reduce_scatter"] > a["reduce_scatter"]
+    assert sum(b.values()) == pytest.approx(sum(a.values()), rel=0.05)
+    if arch == "stablelm_3b":
+        # every all-reduce of the stream moves: what stays is the loss's,
+        # the clip's and the norms' gradients over `model`
+        assert b["all_reduce"] < 1e-3 * a["all_reduce"]
+        assert sum(b.values()) == pytest.approx(sum(a.values()), rel=1e-3)
+        assert sp["analytic_memory"]["total"] / 2**30 == pytest.approx(
+            2.75, abs=0.005)
+
+
+def test_build_step_refuses_a_foreign_override():
+    import dataclasses
+    cfg, shape = t_get_config("stablelm_3b"), T_SHAPES["train_4k"]
+    for sp in (False, True):
+        build_step(cfg, shape, MESH,
+                   policy_override=make_policy(cfg, shape, MESH,
+                                               seq_parallel=sp))
+    foreign = dataclasses.replace(make_policy(cfg, shape, MESH),
+                                  logits=None)
+    for call in (lambda: build_step(cfg, shape, MESH,
+                                    policy_override=foreign),
+                 lambda: t_dryrun.collective_bytes(cfg, shape, MESH,
+                                                   policy=foreign)):
+        with pytest.raises(ValueError) as err:
+            call()
+        assert "C1" in str(err.value) and "logits" in str(err.value)
+
+
+def test_decode_ignores_seq_parallel():
+    """A decode step's policy has no sequence axis to split: the
+    ``seq_parallel`` override is the default, and so is the count."""
+    cfg, shape = t_get_config("stablelm_3b"), T_SHAPES["decode_32k"]
+    assert make_policy(cfg, shape, MESH, seq_parallel=True) == \
+        make_policy(cfg, shape, MESH)
+    assert t_dryrun.collective_bytes(
+        cfg, shape, MESH,
+        policy=make_policy(cfg, shape, MESH, seq_parallel=True)) == \
+        t_dryrun.collective_bytes(cfg, shape, MESH)
