@@ -139,8 +139,20 @@ on its own line:
    engines under ``policy=make_policy(<decode shape>), mesh=`` the 1 x 1
    mesh, in turns with the unsharded engines on the same weights and
    prompts (unsharded, policy, policy, unsharded), every run the same
-   tokens, each path's kernel launched once a pass and layer; the
-   tally over (a) to (f) must be 0 bytes; (g) each kernel on a sharded
+   tokens, each path's kernel launched once a pass and layer; (h) the
+   dense run again under the decode policy of a 1 x 1 x 1 ``("pod",
+   "data", "model")`` mesh (the slots' owner and the logits' gather over
+   the batch axes at extent 1), the same tokens, its tally 0 bytes; (i)
+   full-width Granite-3-8B served paged unsharded and under the policy,
+   the same tokens, and paged attention at its per-rank shapes of a
+   ``model`` axis of 4 (8 query heads over 2 KV heads) and 16 (2 over 1,
+   hd 128) against the plain version (2e-2) and timed beside the whole
+   shape; (j) its policy runtime's lanes exported mid-trace and imported
+   into an unsharded engine, the unmigrated run's tokens; (k) the train
+   step on the pod mesh, its losses phase 8 (a)'s bit for bit, and a
+   batch-1 ``long_500k`` serve step of full-width StarCoder2-7B on its
+   4096-token window's cache, the logits ``decode_step``'s bit for bit;
+   the tally over (a) to (k) must be 0 bytes; (g) each kernel on a sharded
    path against its plain version at the per-rank shape a 4-way
    ``model`` axis gives it (heads or channels / 4: flash forward and
    backward at StableLM-3B's S = T = 4096 with 8 heads of 80, MLA's 32
@@ -2193,12 +2205,18 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
     train step for 2 steps on phase 8 (a)'s seed, weights and batch: its
     losses must be phase 8 (a)'s first two, bit for bit; (4) a prefill and
     4 decode steps through ``build_step`` at batch 2, prompt 1024, on the
-    same weights: the tokens must be the direct calls'; (5) teardown."""
+    same weights: the tokens must be the direct calls'; (e) the train
+    steps under ``seq_parallel``; (f) both engines under the policy; (h)
+    the dense engine under the 1 x 1 x 1 pod mesh's policy; (i), (j)
+    Granite-3-8B paged under the policy, its lanes migrated, and paged
+    attention at its per-rank shapes; (k) the train step on the pod mesh
+    (phase 8 (a)'s losses) and a batch-1 ``long_500k`` serve step of
+    StarCoder2-7B (``decode_step``'s logits); (5) teardown."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.configs.base import get_config
     from repro_torch.launch import collectives
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_device_mesh, make_local_mesh
     from repro_torch.models import partition
     t0 = time.perf_counter()
     out = {"dryrun": dry_runs()}
@@ -2226,14 +2244,28 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
                 seq_parallel=True)[0]
             gc.collect()
             torch.cuda.empty_cache()
-            out["engines"] = _sharded_engines(torch, smi, cfg, mesh)
+            pod_mesh = make_device_mesh((1, 1, 1), ("pod", "data", "model"),
+                                        "cuda")
+            out["engines"] = _sharded_engines(torch, smi, cfg, mesh, pod_mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["granite"] = _granite_paged(torch, smi, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["pod_train"] = _sharded_train(
+                torch, smi, cfg, pod_mesh, phase8_losses,
+                label="(k) on the 1 x 1 x 1 (pod, data, model) mesh: ")[0]
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["long_decode"] = _long_decode(torch, smi, mesh)
             out["collective_bytes"] = collectives.read_tally()
             out["gathered"] = partition.read_gathered()
         finally:
             dist.destroy_process_group()
     log(f"[9/9] build_step's collective tally over the train, prefill and "
-        f"serve steps, the seq_parallel train steps and the engines under "
-        f"the policy at world size 1: {out['collective_bytes']} bytes; "
+        f"serve steps, the seq_parallel train steps, the engines under the "
+        f"policy, the lanes migrated and the pod-mesh and batch-1 steps at "
+        f"world size 1: {out['collective_bytes']} bytes; "
         f"peak memory {out['train']['peak_gib']:.2f} GiB ({smi}); gathered "
         f"parameters alive at once: peak {out['gathered']['peak']} bytes, "
         f"largest gather {out['gathered']['largest']} bytes (a 1 x 1 mesh "
@@ -2251,11 +2283,11 @@ def sharded_steps(torch, smi: str, phase8_losses) -> dict:
 
 
 def _sharded_train(torch, smi, cfg, mesh, phase8_losses,
-                   seq_parallel: bool = False) -> tuple:
+                   seq_parallel: bool = False, label: str = "") -> tuple:
     """(result, the trained weights, the batch's tokens).  With
     ``seq_parallel`` the step follows ``make_policy(..., seq_parallel=
     True)`` (``build_step``'s override), and ``phase8_losses`` are (a)'s
-    build_step losses."""
+    build_step losses; ``label`` leads the log line."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.shardings import make_policy, shard_tree
     from repro_torch.launch.specs import batch_plan
@@ -2298,8 +2330,8 @@ def _sharded_train(torch, smi, cfg, mesh, phase8_losses,
     n = SHARDED["train_steps"]
     what = ("(e) under seq_parallel, against (a)'s" if seq_parallel
             else "against phase 8 (a)'s")
-    log(f"[9/9] build_step train {cfg.name} full width (bf16, remat, batch "
-        f"{TRAIN['batch']} x seq {TRAIN['seq']}, {n} steps, phase 8 (a)'s "
+    log(f"[9/9] {label}build_step train {cfg.name} full width (bf16, remat, "
+        f"batch {TRAIN['batch']} x seq {TRAIN['seq']}, {n} steps, phase 8 (a)'s "
         f"seed, weights and batch; {smi}): step ms "
         f"{[round(x, 1) for x in step_ms]}, peak {peak:.2f} GiB, losses "
         f"{losses} {what} {want} "
@@ -2375,66 +2407,90 @@ ENGINE_PROMPTS = dict(lens=(300, 64, 1000, 17), max_new=16, slots=4,
                       seq_cap=2048)
 
 
-def _sharded_engines(torch, smi, cfg, mesh) -> dict:
+def engine_requests(cfg, lens=None):
+    """ENGINE_PROMPTS' requests, their prompts drawn from seed 5."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    e = ENGINE_PROMPTS
+    rng = np.random.default_rng(5)
+    return [Request(req_id=i, tenant="T1", prompt_len=n,
+                    max_new_tokens=e["max_new"], arrival=0.0,
+                    prompt_tokens=rng.integers(0, cfg.vocab_size, n))
+            for i, n in enumerate(lens or e["lens"])]
+
+
+def serve_engine(torch, eng, reqs, kname, passes, layers, what) -> dict:
+    """Serve ``reqs`` on ``eng`` to the end: tokens, steps, passes, the
+    launches of ``kname`` (which must be passes x layers) and the
+    host-clock wall of the run."""
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"{what} refused {r}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.has_work():
+        eng.finalize_step(eng.step(), float(steps))
+        steps += 1
+    torch.cuda.synchronize()
+    run = {"tokens": [list(r.output_tokens) for r in reqs], "steps": steps,
+           "passes": getattr(eng, passes), "launches": read_counts()[kname],
+           "wall_ms": (time.perf_counter() - t0) * 1e3}
+    want = run["passes"] * layers
+    if run["launches"] == 0 or run["launches"] != want:
+        raise AssertionError(f"{what} launched {kname} {run['launches']} "
+                             f"times, expected {want}")
+    return run
+
+
+def _sharded_engines(torch, smi, cfg, mesh, pod_mesh) -> dict:
     """Full-width StableLM-3B (bf16, random weights from seed 0) served
     dense and paged by ``ServingEngine`` with and without ``policy=
     make_policy(<decode shape>), mesh=mesh``, in turns (unsharded,
-    policy, policy, unsharded): every run must give the first run's
-    tokens, and launch the kernel of its path (flash in each dense
-    prefill, paged attention in each fused step) once a pass and layer.
-    The walls are host-clock times of the whole run."""
-    import numpy as np
+    policy, policy, unsharded), and (h) dense under the decode policy of
+    the 1 x 1 x 1 ``pod_mesh`` (the slots' owner and the logits' gather
+    over the batch axes, at extent 1; its tally must be 0 bytes): every
+    run must give the first run's tokens, and launch the kernel of its
+    path (flash in each dense prefill, paged attention in each fused
+    step) once a pass and layer.  The walls are host-clock times of the
+    whole run."""
     from repro_torch.configs.base import InputShape
+    from repro_torch.launch import collectives
     from repro_torch.launch.shardings import make_policy
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.request import Request
     e = ENGINE_PROMPTS
     params = Model(cfg, seed=0, device="cuda").params
-    policy = make_policy(cfg, InputShape("serve", e["seq_cap"], e["slots"],
-                                         "decode"), mesh)
+    shape = InputShape("serve", e["seq_cap"], e["slots"], "decode")
+    meshes = {"policy": mesh, "pod": pod_mesh}
     layers = len(cfg.layer_specs())
     out = {}
-    for backend, kname, passes in (
-            ("dense", "flash_attention", "prefill_passes"),
-            ("paged", "paged_attention_mixed", "forward_passes")):
+    for backend, kname, passes, tags in (
+            ("dense", "flash_attention", "prefill_passes",
+             ("unsharded", "policy", "policy", "unsharded", "pod")),
+            ("paged", "paged_attention_mixed", "forward_passes",
+             ("unsharded", "policy", "policy", "unsharded"))):
         runs = []
-        for tag in ("unsharded", "policy", "policy", "unsharded"):
-            kw = dict(policy=policy, mesh=mesh) if tag == "policy" else {}
+        for tag in tags:
+            kw = {}
+            if tag in meshes:
+                kw = dict(policy=make_policy(cfg, shape, meshes[tag]),
+                          mesh=meshes[tag])
             eng = ServingEngine(cfg, params, max_slots=e["slots"],
                                 seq_cap=e["seq_cap"], backend=backend,
                                 device="cuda", **kw)
-            rng = np.random.default_rng(5)
-            reqs = [Request(req_id=i, tenant="T1", prompt_len=n,
-                            max_new_tokens=e["max_new"], arrival=0.0,
-                            prompt_tokens=rng.integers(0, cfg.vocab_size, n))
-                    for i, n in enumerate(e["lens"])]
-            for r in reqs:
-                if not eng.submit(r):
-                    raise AssertionError(f"{backend} engine refused {r}")
-            zero_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            steps = 0
-            while eng.has_work():
-                eng.finalize_step(eng.step(), float(steps))
-                steps += 1
-            torch.cuda.synchronize()
-            run = {"tag": tag, "tokens": [list(r.output_tokens) for r in reqs],
-                   "steps": steps, "passes": getattr(eng, passes),
-                   "launches": read_counts()[kname],
-                   "wall_ms": (time.perf_counter() - t0) * 1e3}
+            before = sum(collectives.read_tally().values())
+            run = serve_engine(torch, eng, engine_requests(cfg), kname,
+                               passes, layers, f"{backend} engine ({tag})")
+            run.update(tag=tag, tally=sum(collectives.read_tally().values())
+                       - before)
             runs.append(run)
             del eng
             if run["tokens"] != runs[0]["tokens"]:
                 raise AssertionError(f"{backend} engine ({tag}) gave "
                                      f"{run['tokens']}, the first run "
                                      f"{runs[0]['tokens']}")
-            want = run["passes"] * layers
-            if run["launches"] == 0 or run["launches"] != want:
-                raise AssertionError(f"{backend} engine ({tag}) launched "
-                                     f"{kname} {run['launches']} times, "
-                                     f"expected {want}")
         walls = {tag: [round(r["wall_ms"], 1) for r in runs
                        if r["tag"] == tag] for tag in ("unsharded", "policy")}
         log(f"[9/9] (f) {cfg.name} {backend} full width (bf16, prompts "
@@ -2446,8 +2502,227 @@ def _sharded_engines(torch, smi, cfg, mesh) -> dict:
             f"{layers} layers); first request's tokens "
             f"{runs[1]['tokens'][0]}")
         out[backend] = runs
+    pod = out["dense"][-1]
+    log(f"[9/9] (h) {cfg.name} dense full width under the decode policy of "
+        f"the 1 x 1 x 1 (pod, data, model) mesh: the unsharded run's "
+        f"tokens, {pod['steps']} steps, {pod['wall_ms']:.1f} ms ({smi}), "
+        f"flash launches {pod['launches']}, collective tally {pod['tally']} "
+        f"bytes")
+    if pod["tally"]:
+        raise AssertionError(f"the pod mesh's engine passed {pod['tally']} "
+                             f"bytes to collectives at extent 1")
     del params
     return out
+
+
+# (i), (j): Granite-3-8B paged under the policy, its lanes migrated, and
+# paged attention at the per-rank shapes of a `model` axis of 4 and 16
+# (32 query heads over 8 KV heads: 8 over 2, 2 over 1; hd 128)
+GRANITE = dict(arch="granite_3_8b", migrate_at=6, heads=32, kv=8, hd=128,
+               model_axes=(1, 4, 16), pool_axes=(1, 4, 8, 16))
+
+
+def _granite_paged(torch, smi, mesh) -> dict:
+    """(i) full-width Granite-3-8B (bf16, seed 0) served paged unsharded
+    and under the policy on the 1 x 1 mesh: the same tokens, paged
+    attention once a pass and layer; then paged attention at the per-rank
+    shapes of GRANITE's model axes, each against its plain version
+    (2e-2) and timed by CUDA graph beside the whole shape.  (j) the
+    policy engine's lanes exported after ``migrate_at`` steps and
+    imported into an unsharded engine: the unmigrated run's tokens."""
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_mixed_ref)
+    from repro_torch.launch.shardings import make_policy
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import torch_dtype
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.migrate import PageImporter
+    from repro_torch.serving.paged_runtime import held_kv_heads
+    e, g = ENGINE_PROMPTS, GRANITE
+    cfg = get_config(g["arch"])
+    layers = len(cfg.layer_specs())
+    params = Model(cfg, seed=0, device="cuda").params
+    weights_gib = weight_bytes(cfg) / 2**30
+    policy = make_policy(cfg, InputShape("serve", e["seq_cap"], e["slots"],
+                                         "decode"), mesh)
+
+    def engine(**kw):
+        return ServingEngine(cfg, params, max_slots=e["slots"],
+                             seq_cap=e["seq_cap"], backend="paged",
+                             device="cuda", **kw)
+
+    runs = {}
+    for tag, kw in (("unsharded", {}),
+                    ("policy", dict(policy=policy, mesh=mesh))):
+        runs[tag] = serve_engine(torch, engine(**kw), engine_requests(cfg),
+                                 "paged_attention_mixed", "forward_passes",
+                                 layers, f"granite paged ({tag})")
+    if runs["policy"]["tokens"] != runs["unsharded"]["tokens"]:
+        raise AssertionError(f"granite paged under the policy gave "
+                             f"{runs['policy']['tokens']}, unsharded "
+                             f"{runs['unsharded']['tokens']}")
+    # the bytes a rank's pools hold (the runtime's plan: every layer's K
+    # and V pages of its held KV heads, the trash page included)
+    eng = engine()
+    pages, page = eng.runtime.pool_pages + 1, eng.runtime.page
+    del eng
+    itemsize = torch_dtype(cfg.dtype).itemsize
+    pool_bytes = {m: layers * 2 * pages * page * len(held_kv_heads(
+        cfg, m, 0)) * cfg.attn.head_dim * itemsize for m in g["pool_axes"]}
+    log(f"[9/9] (i) {cfg.name}'s page pools a rank holds at this engine's "
+        f"{pages} pages of {page} tokens (the plan's bytes, not measured): "
+        + ", ".join(f"model {m}: {b} bytes ({b / 2**30:.4f} GiB, "
+                    f"{b // (pages * page)} a token)"
+                    for m, b in pool_bytes.items()))
+    log(f"[9/9] (i) {cfg.name} paged full width ({weights_gib:.2f} GiB of "
+        f"bf16 weights; prompts {list(e['lens'])}, {e['max_new']} new "
+        f"tokens each) unsharded and under the policy on the 1 x 1 mesh: the "
+        f"same tokens, {runs['policy']['steps']} steps, paged launches "
+        f"{runs['policy']['launches']} ({runs['policy']['passes']} passes x "
+        f"{layers} layers), walls ms {runs['unsharded']['wall_ms']:.1f} / "
+        f"{runs['policy']['wall_ms']:.1f} ({smi}); first request's tokens "
+        f"{runs['policy']['tokens'][0]}")
+
+    # (j): lanes exported from the policy runtime, imported unsharded
+    src, dst = engine(policy=policy, mesh=mesh), engine()
+    reqs = engine_requests(cfg)
+    for r in reqs:
+        if not src.submit(r):
+            raise AssertionError(f"request {r.req_id} refused")
+    for i in range(g["migrate_at"]):
+        src.finalize_step(src.step(), float(i))
+    mans = src.drain_requests(ship_state=True)
+    importer = PageImporter(dst.runtime)
+    for man in mans:
+        if not importer.import_lane(man) and not dst.submit(man.req):
+            raise AssertionError(f"request {man.req.req_id} refused")
+    steps = g["migrate_at"]
+    while dst.has_work():
+        dst.finalize_step(dst.step(), float(steps))
+        steps += 1
+    tokens = [list(r.output_tokens) for r in reqs]
+    warm = sum(m.warm for m in mans)
+    migrated = {"warm": warm, "lanes": len(mans),
+                "pages": sum(len(m.pages) for m in mans),
+                "bytes": sum(m.total_bytes for m in mans),
+                "verify_failures": importer.verify_failures,
+                "identical": tokens == runs["unsharded"]["tokens"]}
+    del src, dst
+    log(f"[9/9] (j) {cfg.name} paged lanes exported from the policy runtime "
+        f"after {g['migrate_at']} steps and imported unsharded: {warm} of "
+        f"{len(mans)} lanes warm, {migrated['pages']} pages "
+        f"({migrated['bytes']} bytes), verify failures "
+        f"{importer.verify_failures}, the unmigrated run's tokens "
+        f"{migrated['identical']}")
+    if not migrated["identical"] or importer.verify_failures or warm < 1:
+        raise AssertionError(f"the migrated Granite lanes: {migrated}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # paged attention on a rank's heads of Granite-3-8B
+    kernels = []
+    for m in g["model_axes"]:
+        heads, kv = g["heads"] // m, len(held_kv_heads(cfg, m, 0))
+        x = main_path_step(torch, heads=heads, kv=kv, hd=g["hd"],
+                           layout="lane")
+        args = (x["q"].to(torch.bfloat16), x["k"].to(torch.bfloat16),
+                x["v"].to(torch.bfloat16), x["bt"], x["qpos"])
+        got = pa_kernel.paged_attention_mixed(*args)
+        torch.cuda.synchronize()
+        ref = paged_attention_mixed_ref(*args)
+        err = float((got.float() - ref.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), ref.float(), rtol=2e-2,
+                                 atol=2e-2))
+        case = {"model": m, "H": heads, "KV": kv, "hd": g["hd"],
+                "L": args[0].shape[0], "Q": args[0].shape[1], "ok": ok,
+                "max_abs_err": err,
+                "ms": kernel_ms(torch, lambda: pa_kernel.paged_attention_mixed(
+                    *args))[0],
+                "plain_ms": cuda_ms(torch, lambda: paged_attention_mixed_ref(
+                    *args), iters=5), "nvidia_smi": smi}
+        kernels.append(case)
+        del x, args, got, ref
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"paged attention at {case} disagrees with "
+                                 f"its plain version: {err}")
+    log(f"[9/9] (i) paged_attention_mixed at {cfg.name}'s per-rank shapes "
+        f"(one fused step's lane-major call, bf16, hd {g['hd']}; ms by CUDA "
+        f"graph, {smi}): " + "; ".join(
+            f"model {c['model']}: {c['H']} over {c['KV']} heads "
+            f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, error "
+            f"{c['max_abs_err']:.3g})" for c in kernels))
+    return {"runs": runs, "migrated": migrated, "kernels": kernels,
+            "weights_gib": weights_gib, "pool_bytes": pool_bytes}
+
+
+# (k): a batch-1 decode step of long_500k for full-width StarCoder2-7B, its
+# 4096-token window as the cache, at this position
+LONG = dict(arch="starcoder2_7b", shape="long_500k", position=500_000,
+            seed=3)
+
+
+def _long_decode(torch, smi, mesh) -> dict:
+    """``build_step``'s serve step of ``long_500k`` (batch 1) for
+    full-width StarCoder2-7B (bf16, seed 0) against ``decode_step`` on
+    the same cache and position: the logits bit for bit.  The cache is
+    the window's ring (``positions % window``) filled with random K/V
+    and the positions of the window's tokens before ``position``."""
+    from repro_torch.configs.base import INPUT_SHAPES, get_config
+    from repro_torch.launch.shardings import shard_tree
+    from repro_torch.launch.specs import decode_arg_plans
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.model import Model, decode_step, model_plan
+    from repro_torch.models.params import (map_plan, plan_leaves,
+                                           pspecs_from_plan)
+    cfg = get_config(LONG["arch"])
+    shape = INPUT_SHAPES[LONG["shape"]]
+    params = Model(cfg, seed=0, device="cuda").params
+    cplan = decode_arg_plans(cfg, shape, mesh)[0]
+    gen = torch.Generator(device="cuda").manual_seed(LONG["seed"])
+    pos0 = LONG["position"]
+
+    def leaf(p):
+        if p.dtype == "int32":            # the ring's positions
+            cap = p.shape[-1]
+            slots = torch.arange(cap, device="cuda")
+            held = pos0 - 1 - (pos0 - 1 - slots) % cap
+            return held.to(torch.int32).expand(p.shape).contiguous()
+        return torch.randn(p.shape, generator=gen, device="cuda").to(
+            getattr(torch, p.dtype))
+    cache = map_plan(leaf, cplan)
+    cache_gib = sum(t.numel() * t.element_size()
+                    for t in plan_leaves(cache)) / 2**30
+    local = shard_tree(map_plan(torch.clone, cache),
+                       pspecs_from_plan(cplan, mesh), mesh)
+    p_local = shard_tree(params, pspecs_from_plan(model_plan(cfg), mesh),
+                         mesh)
+    serve, *_ = build_step(cfg, shape, mesh)
+    token = torch.tensor([17], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([pos0], dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = serve(p_local, local, token, pos)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    want = decode_step(params, cfg, cache, token, pos)
+    same = bool(torch.equal(got, want))
+    diff = float((got - want).abs().max())
+    log(f"[9/9] (k) build_step serve of {shape.name} (batch 1) for {cfg.name} "
+        f"full width at position {pos0} (cache {cache_gib:.3f} GiB: the "
+        f"{cplan['period']['sub0']['self']['k'].shape[2]}-token window): "
+        f"logits {tuple(got.shape)} equal decode_step's bit for bit {same} "
+        f"(max difference {diff}), finite {bool(torch.isfinite(got).all())}"
+        f", {step_ms:.1f} ms ({smi})")
+    if not same:
+        raise AssertionError(f"the batch-1 serve step's logits differ from "
+                             f"decode_step's by {diff}")
+    del params, p_local, cache, local
+    return {"identical": same, "max_diff": diff, "cache_gib": cache_gib,
+            "step_ms": step_ms}
 
 
 # a 4-way `model` axis: the sharded path's kernel shapes on one rank, at

@@ -196,6 +196,17 @@ class Part:
         already gathered along S)."""
         return dataclasses.replace(self, seq=False) if self.seq else self
 
+    def alike_rows(self) -> "Part":
+        """This partition for rows that every batch rank computes alike (an
+        engine's one-request prefill, which the batch axes cannot split):
+        no row groups, and the MoE capacity slots not split over them."""
+        buf = self.policy.moe_buf
+        if buf is not None and len(buf) > 1:
+            buf = (buf[0], None) + tuple(buf[2:])
+        return dataclasses.replace(
+            self, rows=(), policy=dataclasses.replace(self.policy,
+                                                      moe_buf=buf))
+
     def model_slice(self, x, dim: int):
         """This rank's block of a whole tensor along ``dim`` (backward:
         the blocks' cotangents gathered)."""

@@ -38,17 +38,21 @@ leaves, so its first enc-dec prefill fails to merge, and it would decode
 from ``prompt_len``.)  Page accounting stays the reference's:
 prompt+max_new pages reserved at submit, whatever the model.
 
-Serving on a live ``model`` mesh (``policy=`` and ``mesh=``, the
-reference's keyword; ROADMAP A7.7): every rank builds the same engine and
-is given the same requests, runs the same scheduler, and stores its share
-of the parameters (``shard_tree`` of their resolved specs), of the slot
-cache (``cache_plan(..., policy)``'s specs) or of the page pools (its KV
-heads); the model functions run on its shares through a
-``models/partition.py::Part`` and every rank reads the whole logits.  The
-mesh's batch axes must have one rank (lanes split over ``data`` are
-replicas, which the harness runs as separate engines), the policy must
-be ``make_policy``'s for a decode shape on that mesh, and the paged
-backend needs the KV heads to divide ``model``.  Without a mesh the
+Serving on a live mesh (``policy=`` and ``mesh=``, the reference's
+keyword; ROADMAP A7.7): every rank builds the same engine and is given
+the same requests, runs the same scheduler, and stores its share of the
+parameters (``shard_tree`` of their resolved specs), of the slot cache
+(``cache_plan(..., policy)``'s specs: the slots split over the batch axes
+``("pod", "data")`` major first, the heads or the sequence over
+``model``) or of the page pools (the KV heads its query heads read); the
+model functions run on its shares through a ``models/partition.py::Part``
+and every rank reads the whole logits.  A prefill's one row is computed
+alike by every batch rank (the parameters gathered over the batch axes
+layer by layer) and kept by the rank whose share holds the slot; a
+decode step runs each rank's slots' rows and gathers the logits over the
+batch axes.  The policy must be ``make_policy``'s for a decode shape on
+that mesh, and the paged backend runs on a mesh whose batch axes have
+one rank (``serving_part`` says what is refused).  Without a mesh the
 policy changes nothing, as the reference's ``shard()`` outside a mesh.
 
 Guardrail hook (paper §2.2, MPS-quota analogue): ``set_quota(frac)`` caps
@@ -69,6 +73,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import batch_axes, mesh_view
 from repro_torch.launch.shardings import (axes_of, make_policy, shard_tree,
                                           zip_map)
@@ -96,26 +101,38 @@ def init_cache_from_plan(plan, device):
     return map_plan(leaf, plan)
 
 
-def serving_part(cfg: ModelConfig, policy: ShardPolicy, mesh, backend: str):
+def serving_part(cfg: ModelConfig, policy: ShardPolicy, mesh, backend: str,
+                 max_slots: int):
     """The partition an engine serves under on a live mesh (its cache
     specs not yet set), or None without a mesh.  Refuses (``ValueError``,
-    naming ROADMAP A7.7) a mesh without a policy, a mesh whose batch axes
-    have more than one rank, a policy other than ``make_policy``'s for a
-    decode shape on the mesh, and, in the paged backend, KV heads that do
-    not divide ``model``."""
+    naming ROADMAP A7.7) a mesh without a policy, a policy other than
+    ``make_policy``'s for a decode shape on the mesh (its batched one
+    when the batch axes have more than one rank), ``max_slots`` that the
+    batch ranks do not divide, and, in the paged backend, batch axes of
+    more than one rank and query heads that do not fall on whole KV heads
+    of a rank (``paged_runtime.held_kv_heads``)."""
     if mesh is None:
         return None
     view = mesh_view(mesh)
     if policy is None or policy == NO_POLICY:
         raise ValueError("a mesh needs a policy (make_policy of a decode "
                          "shape on it) to serve under (ROADMAP A7.7)")
-    wide = [a for a in batch_axes(view) if view.shape[a] > 1]
-    if wide:
+    wide = {a: view.shape[a] for a in batch_axes(view) if view.shape[a] > 1}
+    if wide and backend == "paged":
         raise ValueError(
-            f"batch axes {wide} have more than one rank: lanes split over "
-            f"them are replicas, served as separate engines (ROADMAP A7.7)")
+            f"batch axes {sorted(wide)} have more than one rank: the paged "
+            f"runtime packs every lane into one row of batch 1, as the "
+            f"reference's does, and its policy cannot split that over the "
+            f"batch axes either; replicas are served as separate engines "
+            f"(ROADMAP A7.7)")
+    ranks = int(np.prod(list(wide.values()), dtype=np.int64))
+    if max_slots % ranks:
+        raise ValueError(
+            f"{max_slots} slots do not divide the {ranks} ranks of the batch "
+            f"axes {sorted(wide)}: the policy's sharding cannot split the "
+            f"slot cache (ROADMAP A7.7)")
     decode = [make_policy(cfg, InputShape("serve", 2, b, "decode"), view)
-              for b in (2, 1)]
+              for b in ((2,) if wide else (2, 1))]
     if policy not in decode:
         act = policy.act or ()
         why = ("splits the sequence (a train or prefill step's "
@@ -123,12 +140,9 @@ def serving_part(cfg: ModelConfig, policy: ShardPolicy, mesh, backend: str):
                else "is not make_policy's for a decode shape on this mesh")
         raise ValueError(f"the policy {why}; an engine serves under "
                          f"{decode[0]} (ROADMAP A7.7)")
-    m = view.shape.get("model", 1)
-    if backend == "paged" and cfg.attn.num_kv_heads % m:
-        raise ValueError(
-            f"{cfg.attn.num_kv_heads} KV heads do not divide {m} `model` "
-            f"ranks: the policy would split the cache's sequence, and pages "
-            f"do not split that way (ROADMAP A7.7)")
+    if backend == "paged":
+        from repro_torch.serving.paged_runtime import held_kv_heads
+        held_kv_heads(cfg, view.shape.get("model", 1), 0)
     return make_part(mesh, policy, pspecs_from_plan(model_plan(cfg), mesh))
 
 
@@ -218,9 +232,9 @@ class ServingEngine:
     ``attn_impl`` routes every kernel of the path ("auto": the CUDA kernel
     on CUDA tensors, the plain version on the CPU; "kernel"; "ref").
 
-    ``policy`` and ``mesh``: serve on a live ``model`` mesh (module
-    docstring; ``serving_part`` says what is refused); ``params`` are then
-    the whole weights and ``self.params`` this rank's shards."""
+    ``policy`` and ``mesh``: serve on a live mesh (module docstring;
+    ``serving_part`` says what is refused); ``params`` are then the whole
+    weights and ``self.params`` this rank's shards."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, max_slots: int = 8,
                  seq_cap: int = 256, page_size: int = 16, seed: int = 0,
@@ -260,7 +274,7 @@ class ServingEngine:
             from repro_torch.serving.paged_runtime import refuse_unsupported
             refuse_unsupported(cfg)
         self.policy, self.mesh = policy, mesh
-        self.part = serving_part(cfg, policy, mesh, backend)
+        self.part = serving_part(cfg, policy, mesh, backend, max_slots)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg, params, seed=seed, device=self.device)
@@ -316,9 +330,15 @@ class ServingEngine:
         if self.part is not None:
             c_specs = pspecs_from_plan(cplan, mesh)
             self.part = dataclasses.replace(self.part, cache_specs=c_specs)
-            # (plan leaf, stored spec) per leaf, for cutting a prefill's
-            # cache to this rank's share of the slot cache
-            self._c_leaves = zip_map(lambda p, sp: (p, sp), cplan, c_specs)
+            # a prefill's one row, computed alike by every batch rank
+            self._prefill_part = self.part.alike_rows()
+            # this rank's block of the slots, and (plan leaf, stored spec)
+            # per leaf of one slot, for cutting a prefill's cache to this
+            # rank's share of the slot cache
+            self._slot_block = self.part.block(self.part.rows)
+            one = cache_plan(cfg, 1, seq_cap, enc_cap, policy=policy)
+            self._c_leaves = zip_map(lambda p, sp: (p, sp), one,
+                                     pspecs_from_plan(one, mesh))
             cplan = local_plan(cplan, c_specs, mesh)
         self.cache = init_cache_from_plan(cplan, self.device)
         self.cross_len = (torch.zeros(max_slots, dtype=torch.int32,
@@ -493,12 +513,18 @@ class ServingEngine:
         along axis 1: writing it along axis 0 would put one request's KV on
         the repeats axis of every slot.  A leaf shorter than its slot (the
         cross-attention K/V of F < enc_cap frames) fills the slot's leading
-        rows; the rest is masked by ``cross_len``.  On a mesh the prefill's
-        leaves are cut to this rank's share of the slot cache first (its
-        heads come out local; a sequence the cache splits is cut)."""
+        rows; the rest is masked by ``cross_len``.  On a mesh only the rank
+        whose block of the slots holds ``slot`` keeps the row, cut to its
+        share of the slot cache first (its heads come out local; a
+        sequence the cache splits is cut)."""
         def into(dst, src):
             dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
         if self.part is not None:
+            index, n = self._slot_block
+            per = self.max_slots // n
+            if slot // per != index:
+                return                     # another batch rank's slot
+            slot -= index * per
             if self.enc_cap:
                 cache1 = _pad_frames(cache1, self.enc_cap)
             cache1 = zip_map(
@@ -538,9 +564,10 @@ class ServingEngine:
             position = 1
         self._sync()
         t0 = time.perf_counter()
+        part = self._prefill_part if self.part is not None else None
         logits, cache1 = prefill(self.params, self.cfg, tokens,
                                  seq_cap=self.seq_cap, impl=self.attn_impl,
-                                 part=self.part, **kw)
+                                 part=part, **kw)
         self._merge_slot_cache(cache1, slot)
         if self.cross_len is not None:
             self.cross_len[slot] = req.prompt_len
@@ -563,16 +590,26 @@ class ServingEngine:
 
     def _do_decode(self) -> StepReport:
         """One token for every slot (empty slots decode harmlessly at their
-        stale positions, as in the reference; their rows are ignored)."""
+        stale positions, as in the reference; their rows are ignored).  On a mesh each batch rank
+        decodes its slots' rows and the logits are gathered over the batch
+        axes."""
         toks = torch.tensor(self.last_token, dtype=torch.long,
                             device=self.device)
         pos = torch.tensor(self.positions, dtype=torch.int32,
                            device=self.device)
+        cross = self.cross_len
+        groups = self.part.row_groups if self.part is not None else ()
+        if groups:
+            toks, pos = (coll.own_block(t, groups, 0) for t in (toks, pos))
+            if cross is not None:
+                cross = coll.own_block(cross, groups, 0)
         self._sync()
         t0 = time.perf_counter()
         logits = decode_step(self.params, self.cfg, self.cache, toks, pos,
-                             cross_len=self.cross_len, impl=self.attn_impl,
+                             cross_len=cross, impl=self.attn_impl,
                              part=self.part)
+        if groups:
+            logits = coll.all_gather(logits, groups, 0)
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         self._sync()
         dt = time.perf_counter() - t0

@@ -31,6 +31,14 @@ frameworks, so a lane exported from a JAX replica verifies and imports
 into a port replica (both keep pools ``[(repeats,) P, page, KV, hd]``).
 A float32 or int8 lane exported by the port imports into a JAX replica;
 a bf16 one would need its ``uint16`` payload viewed as bf16 first.
+
+A runtime on a live ``model`` mesh holds a rank's KV heads of each page
+(``paged_runtime.held_kv_heads``).  Its exporter gathers the lane's pages
+over ``model`` (``launch/collectives.py``, so the bytes are tallied) and
+keeps each head once, so a record holds every head and the manifest the
+same bytes and digests as the unsharded runtime's; its importer writes
+its own heads of each record.  Every rank exports and imports the same
+lanes together: the export is a collective.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch import collectives as coll
 from repro_torch.serving.kvcache import PageTableEntry
 from repro_torch.serving.request import Request
 from repro_torch.serving.sched import SeqState
@@ -73,16 +82,20 @@ def _page_digest(prev: bytes, tokens: Tuple[int, ...],
     return h.digest()
 
 
-def _pages_to_host(pool: torch.Tensor, pages: List[int],
-                   group: str) -> np.ndarray:
+def _pages_to_host(pool: torch.Tensor, pages: List[int], group: str,
+                   whole=None) -> np.ndarray:
     """The given pages of one pool leaf as a host array, the page axis
-    where the pool has it (axis 1 of a stacked ``period`` leaf).  A bf16
-    leaf comes back as its raw bits in ``uint16`` (numpy has no bf16); the
-    digest hashes bytes, so it equals the JAX package's for the same
-    page."""
+    where the pool has it (axis 1 of a stacked ``period`` leaf); ``whole``
+    makes every KV head of the selection (its head axis given) from a
+    rank's.  A bf16 leaf comes back as its raw bits in ``uint16`` (numpy
+    has no bf16); the digest hashes bytes, so it equals the JAX package's
+    for the same page."""
     axis = 1 if group == "period" else 0
     idx = torch.tensor(pages, dtype=torch.long, device=pool.device)
-    sel = pool.index_select(axis, idx).to("cpu", copy=True)
+    sel = pool.index_select(axis, idx)
+    if whole is not None:
+        sel = whole(sel, axis + 2)
+    sel = sel.to("cpu", copy=True)
     if sel.dtype == torch.bfloat16:
         return sel.view(torch.int16).numpy().view(np.uint16)
     return sel.numpy()
@@ -162,26 +175,41 @@ class LaneManifest:
         return np.concatenate([prm, out])[: self.cache_tokens]
 
 
-def refuse_split_heads(runtime) -> None:
-    """A lane's pages ship whole heads; a runtime whose pools hold a
-    ``model`` rank's share of them (a live mesh) is refused."""
-    part = getattr(runtime, "part", None)
-    if part is not None and part.m > 1:
-        raise ValueError(
-            "the lane format holds every KV head; this runtime's pools "
-            f"hold 1/{part.m} of them (a live `model` mesh): its lanes "
-            "are not exported or imported (ROADMAP A7.7)")
+def _split_heads(runtime) -> bool:
+    """Whether the runtime's pools hold only some KV heads (a rank of a
+    live ``model`` mesh)."""
+    return len(runtime.kv_heads) != runtime.cfg.attn.num_kv_heads
 
 
 class PageExporter:
     """Serialize a paged runtime's resident lanes into
     :class:`LaneManifest` objects.  Must run BEFORE
     ``drain_for_redrive()`` — the drain resets the request cursors the
-    manifest snapshots."""
+    manifest snapshots.  On a live ``model`` mesh every rank exports the
+    same lanes together (module docstring)."""
 
     def __init__(self, runtime):
-        refuse_split_heads(runtime)
         self.rt = runtime
+        self._keep = None
+        if _split_heads(runtime):
+            # each head's place among the gathered ranks' held heads: the
+            # first rank that holds it
+            from repro_torch.serving.paged_runtime import held_kv_heads
+            part, held = runtime.part, len(runtime.kv_heads)
+            place = {}
+            for r in range(part.m):
+                for i, h in enumerate(held_kv_heads(runtime.cfg, part.m, r)):
+                    place.setdefault(h, r * held + i)
+            self._keep = [place[h] for h in sorted(place)]
+
+    def _whole(self, sel: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every KV head of ``sel`` (this rank's held heads along
+        ``dim``): the ``model`` ranks' gathered, each head kept once."""
+        out = coll.all_gather(sel, self.rt.part.tp, dim)
+        if out.shape[dim] == len(self._keep):
+            return out
+        idx = torch.tensor(self._keep, dtype=torch.long, device=out.device)
+        return out.index_select(dim, idx)
 
     def export_lane(self, seq: SeqState) -> LaneManifest:
         req = seq.req
@@ -213,8 +241,9 @@ class PageExporter:
         ps = kv.page_size
         pages = entry.pages[:kv.pages_needed(cache_tokens)]
         # one device-to-host copy per pool leaf for the whole lane
+        whole = self._whole if self._keep is not None else None
         leaves = {key: _pages_to_host(self.rt.pools[group][name][fld],
-                                      pages, group)
+                                      pages, group, whole)
                   for key, group, name, fld in _pool_leaves(self.rt.pools)}
         prev = b""
         for p, page in enumerate(pages):
@@ -253,10 +282,10 @@ class PageImporter:
     table, publish the prompt pages to the destination's prefix index,
     restore the request cursors, and hand the lane to the scheduler.
     A rejected lane leaves the destination bit-identical to before the
-    call."""
+    call.  On a live ``model`` mesh each rank writes its held KV heads of
+    every record (module docstring)."""
 
     def __init__(self, runtime):
-        refuse_split_heads(runtime)
         self.rt = runtime
         self.imported_lanes = 0
         self.imported_pages = 0
@@ -283,20 +312,33 @@ class PageImporter:
                 raise ImportReject(f"page {p} chain-hash mismatch")
 
     # ------------------------------------------------------------- commit
+    def _held(self, arr: np.ndarray, dim: int, key: str) -> np.ndarray:
+        """A record's page of one leaf cut to the KV heads (along ``dim``)
+        this runtime's pools hold; a page without every head rejects."""
+        heads, total = self.rt.kv_heads, self.rt.cfg.attn.num_kv_heads
+        if arr.ndim <= dim or arr.shape[dim] != total:
+            raise ImportReject(f"payload leaf {key} does not hold the "
+                               f"{total} KV heads")
+        return arr[(slice(None),) * dim + (slice(heads.start, heads.stop),)]
+
     def _write_pages(self, recs: List[PageRecord],
                      dst_pages: List[int]) -> None:
-        """Write each record's leaves into its destination page, in place
-        in the pool tensors (one host-to-device copy per leaf); a missing
-        leaf or one whose shape or type does not fit the pool rejects."""
+        """Write each record's leaves (this rank's KV heads of them on a
+        ``model`` mesh) into its destination page, in place in the pool
+        tensors (one host-to-device copy per leaf); a missing leaf or one
+        whose shape or type does not fit the pool rejects."""
         pools = self.rt.pools
+        split = _split_heads(self.rt)
         writes = []
         for key, group, name, fld in _pool_leaves(pools):
             if any(key not in rec.payload for rec in recs):
                 raise ImportReject(f"payload leaf {key} missing")
             pool = pools[group][name][fld]
             axis = 1 if group == "period" else 0
-            src = _host_to_pool([rec.payload[key] for rec in recs], pool,
-                                axis, key)
+            pages = [rec.payload[key] for rec in recs]
+            if split:
+                pages = [self._held(a, axis + 1, key) for a in pages]
+            src = _host_to_pool(pages, pool, axis, key)
             writes.append((pool, axis, src))
         idx = torch.tensor(dst_pages, dtype=torch.long,
                            device=writes[0][0].device if writes else "cpu")

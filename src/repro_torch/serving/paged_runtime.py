@@ -43,13 +43,21 @@ sliding windows, no cross-attention), as in the JAX runtime.
 
 On a live ``model`` mesh (``policy=`` and ``mesh=``, as the engine takes
 them; ``serving/engine.py::serving_part``) ``params`` are this rank's
-shards and the pools hold its KV heads, ``[(repeats,) pool_pages+1, page,
-KV/m, hd]``: each layer projects Q/K/V for the rank's heads, writes its
-pages, runs paged attention on them (the kernel unchanged, at the
-per-rank shape), and meets ``wo``'s partial sums in an all-reduce; the
-FFN runs as the model's layer pieces run it under ``part``, and the
-vocabulary is gathered before the argmax and the verify.  Every rank
-runs the same scheduler on the same requests.
+shards, the query heads split over ``model`` as the policy's ``heads``
+says, and the pools hold the KV heads the rank's query heads read
+(:func:`held_kv_heads`), ``[(repeats,) pool_pages+1, page, KV', hd]``:
+``KV / m`` heads a rank when they divide ``model``, else one, held by
+``m / KV`` ranks (Granite-3-8B on 16: 2 query heads over 1 KV head a
+rank).  Each layer projects Q for the rank's heads and K/V for its held
+heads, writes its pages, runs paged attention on them (the kernel
+unchanged, at the per-rank GQA shape), and meets ``wo``'s partial sums in
+an all-reduce; the FFN runs as the model's layer pieces run it under
+``part``, and the vocabulary is gathered before the argmax and the
+verify.  Every rank runs the same scheduler on the same requests.  A
+page pool split by sequence (as the policy's ``kv_cache`` splits the
+dense cache when the KV heads fall short) would need the kernel to
+return each rank's log-sum-exp and a merge across ranks; holding whole
+heads costs ``m / KV`` copies of each instead.
 """
 from __future__ import annotations
 
@@ -102,6 +110,29 @@ def refuse_unsupported(cfg: ModelConfig) -> None:
             f"paged backend does not support {reason} ({cfg.name})")
 
 
+def held_kv_heads(cfg: ModelConfig, m: int, mi: int) -> range:
+    """The KV heads whose pages ``model`` rank ``mi`` of ``m`` holds: those
+    its query heads read, head ``j // (H / KV)`` for each of its query
+    heads ``j`` (the query heads split over ``model`` in blocks).  Raises
+    ``ValueError`` (ROADMAP A7.7) when the query heads do not divide
+    ``m``, or when a rank's query heads do not fall on whole groups of
+    one KV head, so that the ranks would hold different numbers of KV
+    heads."""
+    a = cfg.attn
+    if a.num_heads % m:
+        raise ValueError(
+            f"{a.num_heads} query heads do not divide {m} `model` ranks: "
+            f"the paged runtime splits them over `model` (ROADMAP A7.7)")
+    per, group = a.num_heads // m, a.num_heads // a.num_kv_heads
+    if per % group and group % per:
+        raise ValueError(
+            f"{per} query heads a rank over groups of {group} (of "
+            f"{a.num_kv_heads} KV heads): the {m} `model` ranks would hold "
+            f"different numbers of KV heads (ROADMAP A7.7)")
+    first = mi * per // group
+    return range(first, first + max(1, per // group))
+
+
 def lane_rows_bucket(rows: int, spec_k: int, chunk: int) -> int:
     """Rows per lane of the step's lane-major call: the smallest of the
     buckets (1, 1 + spec_k, chunk) that holds ``rows``, so the kernel sees
@@ -150,7 +181,11 @@ class PagedRuntime:
                  seed: int = 0, policy: ShardPolicy = NO_POLICY, mesh=None,
                  device="cuda"):
         refuse_unsupported(cfg)
-        self.part = serving_part(cfg, policy, mesh, "paged")
+        self.part = serving_part(cfg, policy, mesh, "paged", max_slots)
+        # the KV heads this rank's pools hold (all of them unsharded)
+        self.kv_heads = (held_kv_heads(cfg, self.part.m, self.part.mi)
+                         if self.part is not None
+                         else range(cfg.attn.num_kv_heads))
         if kv_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
                              f"(expected 'auto' or 'int8')")
@@ -190,7 +225,7 @@ class PagedRuntime:
     def _init_pools(self) -> Dict[str, Any]:
         a = self.cfg.attn
         dt = torch.int8 if self.kv_quant else torch_dtype(self.cfg.dtype)
-        kv = a.num_kv_heads // (self.part.m if self.part is not None else 1)
+        kv = len(self.kv_heads)
         shape = (self.pool_pages + 1, self.page, kv, a.head_dim)
         sshape = (self.pool_pages + 1, self.page, kv)
         dev = self.device
@@ -261,9 +296,13 @@ class PagedRuntime:
         cfg = self.cfg
         ap = lp["attn"]
         xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
+        wk, wv = ap["wk"], ap["wv"]
+        if wk.shape[1] != len(self.kv_heads):  # whole: keep the held heads
+            first, n = self.kv_heads.start, len(self.kv_heads)
+            wk, wv = wk.narrow(1, first, n), wv.narrow(1, first, n)
         q = einsum("td,dhk->thk", xin, ap["wq"])
-        k = einsum("td,dhk->thk", xin, ap["wk"])
-        v = einsum("td,dhk->thk", xin, ap["wv"])
+        k = einsum("td,dhk->thk", xin, wk)
+        v = einsum("td,dhk->thk", xin, wv)
         q = apply_rope(q, qpos, cfg.rope_theta)
         k = apply_rope(k, qpos, cfg.rope_theta)
         self._scatter(pool, k, v, page_ids, offs)

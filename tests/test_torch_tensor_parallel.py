@@ -51,6 +51,11 @@ ARCHS = ("stablelm_3b", "mixtral_8x7b", "jamba_v0_1_52b", "rwkv6_1_6b",
 # reduced Jamba with 2 experts: on 1 x 4 they do not divide `model`, so
 # the experts' leaves take their `alt` (each expert's d_ff split)
 VARIANTS = {"jamba_2_experts": ("jamba_v0_1_52b", 2)}
+# (arch, query heads, KV heads): on a `model` axis of 4 neither count
+# divides, so every rank computes the attention block alike
+# (tests/test_torch_live_meshes.py)
+HEADS = {"stablelm_6_heads": ("stablelm_3b", 6, 6),
+         "starcoder2_6_heads": ("starcoder2_7b", 6, 2)}
 CAPACITY = {"mixtral_8x7b": 0.5, "jamba_v0_1_52b": 0.55}
 # SeamlessM4T's decoder prompt and cache (= frames): the plans give a
 # prefill min(128, seq) decoder tokens over seq frames
@@ -62,6 +67,11 @@ OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=4)
 
 
 def _cfg(name):
+    if name in HEADS:
+        arch, heads, kv = HEADS[name]
+        cfg = reduced(get_config(arch)).replace(dtype="float32", repeats=2)
+        return cfg.replace(attn=dataclasses.replace(
+            cfg.attn, num_heads=heads, num_kv_heads=kv))
     arch, experts = VARIANTS.get(name, (name, None))
     cfg = reduced(get_config(arch)).replace(dtype="float32", repeats=2)
     if arch in CAPACITY:
