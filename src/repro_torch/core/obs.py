@@ -1,22 +1,28 @@
-"""Observability substrate: virtual-clock trace events + Chrome export.
+"""Observability substrate: trace events, engine step spans + Chrome
+export.
 
 This module is the layer-neutral half of the tracing subsystem (the
 serving-specific per-request flight recorder lives in
 ``serving/trace.py``).  Core modules — the controller, the admission
 controller, the cluster simulator — accept an optional :class:`Tracer`
-and emit *instant* or *span* events onto a shared virtual-clock
-timeline; the serving layer subclasses it to accrue per-request span
-timelines with a conservation invariant.
+and emit *instant* or *span* events onto a shared timeline; the serving
+layer subclasses it to accrue per-request span timelines with a
+conservation invariant.
 
 Design contract (the reason this file exists at all):
 
-* **Timestamps are always caller-provided virtual-clock seconds.**
-  Nothing in here reads a wall clock — tracing must never perturb the
-  harness's virtual time, and a trace recorded under the virtual clock
-  replays bit-identically.
+* **A tracer reads only the clock it is given.**  Event timestamps are
+  the caller's own stamps.  A tracer built with no ``clock`` (the
+  virtual-clock harness) reads no clock at all and records no step
+  spans, so a trace recorded under the virtual clock replays
+  bit-identically.  A tracer built with ``clock`` (a callable returning
+  seconds) lets the serving engine stamp its step spans
+  (:class:`StepSpans`) with that clock and nothing else; handing it the
+  clock the caller stamps its own steps with keeps one timeline.
 * **Disabled tracing is free.**  Every call site is guarded
   (``if tracer is not None``): with no tracer attached, zero objects
-  are allocated and zero branches beyond the guard run.
+  are allocated, no clock is read and zero branches beyond the guard
+  run.
 * **Export is Chrome ``trace_event`` JSON** (the format Perfetto /
   ``chrome://tracing`` load directly): tracks map to pids, lanes to
   tids, seconds to microseconds.
@@ -24,8 +30,10 @@ Design contract (the reason this file exists at all):
 from __future__ import annotations
 
 import json
+from array import array
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 
 @dataclass
@@ -40,11 +48,70 @@ class TraceEvent:
     """
     name: str
     ph: str                       # "X" complete span | "i" instant
-    ts: float                     # virtual-clock seconds
+    ts: float                     # seconds on the caller's clock
     dur: float = 0.0              # seconds ("X" only)
     track: str = ""
     lane: str = ""
     args: Dict[str, Any] = field(default_factory=dict)
+
+
+class StepSpans:
+    """The spans of one engine step on a tracer's clock.
+
+    The root span, ``engine.step``, runs from ``t0`` (stamped when the
+    record is opened) to ``t1`` (stamped by :meth:`close`); the spans
+    inside it are kept as parallel ``names``, ``starts`` and ``ends``
+    (float arrays, so a step's few hundred spans allocate no object
+    each) in the order they closed.  ``args`` holds the step's counters.
+
+    :meth:`phase` closes the span running from the cursor (the end of
+    the previous span, or ``t0``) to now, so consecutive phases tile
+    their parent; :meth:`restart` moves the cursor to now, to begin a
+    run of nested phases; :meth:`span` closes a span from an explicit
+    start."""
+
+    __slots__ = ("clock", "t0", "t1", "cursor", "names", "starts", "ends",
+                 "args")
+
+    def __init__(self, clock: Callable[[], float]) -> None:
+        self.clock = clock
+        self.t0 = self.cursor = clock()
+        self.t1: Optional[float] = None
+        self.names: List[str] = []
+        self.starts = array("d")
+        self.ends = array("d")
+        self.args: Dict[str, Any] = {}
+
+    def span(self, name: str, t0: float) -> float:
+        """Close span ``name`` from ``t0`` to now; returns now, which
+        becomes the cursor."""
+        t1 = self.clock()
+        self.names.append(name)
+        self.starts.append(t0)
+        self.ends.append(t1)
+        self.cursor = t1
+        return t1
+
+    def phase(self, name: str) -> float:
+        """Close span ``name`` from the cursor to now; returns now."""
+        return self.span(name, self.cursor)
+
+    def restart(self) -> None:
+        """Move the cursor to now (the start of nested phases)."""
+        self.cursor = self.clock()
+
+    def close(self) -> None:
+        self.t1 = self.clock()
+
+    def spans(self) -> List[tuple]:
+        """(name, start, end) of the root and of every span inside it."""
+        return ([("engine.step", self.t0, self.t1)]
+                + list(zip(self.names, self.starts, self.ends)))
+
+    def total(self, name: str) -> float:
+        """Seconds of the spans named ``name`` in this step."""
+        return sum(e - s for n, s, e in zip(self.names, self.starts,
+                                              self.ends) if n == name)
 
 
 class Tracer:
@@ -60,11 +127,27 @@ class Tracer:
     controller-plane subset) so request timelines can be checked for
     overlap with reconfigure pause windows without scanning the full
     event list.
+
+    ``clock`` (a callable returning seconds) turns on the serving
+    engine's step spans: each step opens a :class:`StepSpans` record
+    (:meth:`open_step`), kept in ``steps``, a ring of the last
+    ``max_steps`` records, so a clocked tracer left on a live server
+    stays bounded.  With no clock the tracer reads none and ``steps``
+    stays empty.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, clock: Optional[Callable[[], float]] = None,
+                 max_steps: int = 1024) -> None:
         self.events: List[TraceEvent] = []
         self.actions: List[TraceEvent] = []
+        self.clock = clock
+        self.steps: Deque[StepSpans] = deque(maxlen=max_steps)
+
+    def open_step(self) -> StepSpans:
+        """Begin one engine step's span record (a tracer with a clock)."""
+        rec = StepSpans(self.clock)
+        self.steps.append(rec)
+        return rec
 
     # ------------------------------------------------------------ emission
     def instant(self, name: str, t: float, track: str = "",

@@ -290,8 +290,12 @@ class ServingEngine:
         self.metrics = TenantMetrics()
         # optional flight recorder with ``on_step(report, start, end,
         # engine=...)``: ``finalize_step`` folds each step into per-request
-        # timelines.  None (the default) costs one guard per step.
+        # timelines.  One with a ``clock`` (``core/obs.py::Tracer``) also
+        # records each step's spans: ``step`` hands the runtime the step's
+        # record.  None (the default) costs one guard a site.
         self.tracer = None
+        # the last step's span record, which ``finalize_step`` closes
+        self._step_spans = None
         # forward passes run (all, and the prefills among them); on the
         # paged backend every pass is a fused mixed step
         self.forward_passes = 0
@@ -434,8 +438,14 @@ class ServingEngine:
 
     # ----------------------------------------------------------------- step
     def step(self) -> StepReport:
-        """One unit of work.  Compute time measured with a real clock."""
-        report = self._step_backend()
+        """One unit of work.  Compute time measured with a real clock.
+        With a tracer that has a clock, the step is the ``engine.step``
+        span, and the paged runtime records the spans inside it."""
+        tracer = self.tracer
+        spans = (tracer.open_step() if tracer is not None
+                 and getattr(tracer, "clock", None) is not None else None)
+        self._step_spans = spans
+        report = self._step_backend(spans)
         if report.kind != "idle":
             self.forward_passes += 1
             self.prefill_passes += bool(report.prefilled
@@ -449,11 +459,13 @@ class ServingEngine:
         if self.runtime is not None:
             self.metrics.observe_response_cache(
                 self.runtime.sched.rc_lookups, self.runtime.sched.rc_hits)
+        if spans is not None:
+            spans.close()
         return report
 
-    def _step_backend(self) -> StepReport:
+    def _step_backend(self, spans=None) -> StepReport:
         if self.runtime is not None:
-            return self.runtime.step()
+            return self.runtime.step(spans)
         free = [i for i, s in enumerate(self.slots) if s is None]
         n_active = self.max_slots - len(free)
         if self.queue and free and n_active < self.active_slot_budget:
@@ -465,7 +477,11 @@ class ServingEngine:
     def finalize_step(self, report: StepReport, end_time: float,
                       start_time: Optional[float] = None) -> None:
         """Record timestamps using the harness-provided completion time
-        (``start_time`` is only read by the flight recorder)."""
+        (``start_time`` is only read by the flight recorder).  With a
+        tracer that has a clock, this is the step record's
+        ``engine.finalize`` span."""
+        spans = self._step_spans
+        t0 = spans.clock() if spans is not None else None
         for req in report.prefilled:
             req.prefill_done = end_time
             # door-measured TTFT: from arrival at the front door
@@ -490,6 +506,9 @@ class ServingEngine:
         if self.tracer is not None:
             self.tracer.on_step(report, start_time, end_time,
                                 engine=self.backend)
+        if spans is not None:
+            spans.span("engine.finalize", t0)
+            self._step_spans = None
 
     # ------------------------------------------------------------ internals
     def _sync(self) -> None:

@@ -220,6 +220,9 @@ class PagedRuntime:
         # of them produced finite logits
         self.forward_passes = 0
         self.logits_finite = True
+        # the running step's span record (``core/obs.py::StepSpans``),
+        # handed in by the engine when its tracer has a clock, else None
+        self._spans = None
 
     # ------------------------------------------------------------- pools
     def _init_pools(self) -> Dict[str, Any]:
@@ -294,6 +297,7 @@ class PagedRuntime:
         attention call lane-major (``lanes``: block tables [L, W], slot
         positions [L, Q], gather [L*Q] and scatter [T] indices)."""
         cfg = self.cfg
+        sp = self._spans
         ap = lp["attn"]
         xin = rms_norm(h, lp["norm1"], cfg.norm_eps)
         wk, wv = ap["wk"], ap["wv"]
@@ -305,7 +309,11 @@ class PagedRuntime:
         v = einsum("td,dhk->thk", xin, wv)
         q = apply_rope(q, qpos, cfg.rope_theta)
         k = apply_rope(k, qpos, cfg.rope_theta)
+        if sp is not None:
+            sp.phase("fwd.qkv")
         self._scatter(pool, k, v, page_ids, offs)
+        if sp is not None:
+            sp.phase("fwd.kv_write")
         kwargs = {}
         if self.kv_quant:
             kwargs = dict(k_scales=pool["k_scale"], v_scales=pool["v_scale"])
@@ -317,25 +325,42 @@ class PagedRuntime:
                                     lane_qpos, impl=self.attn_impl, **kwargs)
         ctx = ctx.reshape(n_lanes * q_len, *q.shape[1:]).index_select(
             0, scatter)                                          # [T, H, hd]
+        if sp is not None:
+            sp.phase("fwd.attention")
         out = einsum("thk,hkd->td", ctx.to(h.dtype), ap["wo"])
         if self.part is not None:
             out = self.part.g(out)
         h = h + out
-        return _apply_ffn(lp, h, layer, cfg, self.part)
+        if sp is not None:
+            sp.phase("fwd.out")
+        h = _apply_ffn(lp, h, layer, cfg, self.part)
+        if sp is not None:
+            sp.phase("fwd.ffn")
+        return h
 
     @torch.no_grad()
     def _mixed_impl(self, tokens, qpos, page_ids, offs, lanes, last_rows):
         """tokens/qpos/page_ids/offs [T] (qpos: pad rows at 0), ``lanes``
         the lane-major call's arrays (``_mixed_layer``), last_rows [N] ->
-        logits [N, V] f32."""
+        logits [N, V] f32.  With a span record: ``fwd.embed``, per layer
+        ``fwd.qkv``, ``fwd.kv_write``, ``fwd.attention``, ``fwd.out``,
+        ``fwd.ffn``, then ``fwd.logits``."""
         part = self.part
+        sp = self._spans
+        if sp is not None:
+            sp.restart()
         h = embed_tokens(self.params, self.cfg, tokens, part)
+        if sp is not None:
+            sp.phase("fwd.embed")
         for lp, layer, pool in self._layers:
             h = self._mixed_layer(lp, h, layer, qpos, page_ids, offs, lanes,
                                   pool)
         h = rms_norm(h, self.params["final_norm"], self.cfg.norm_eps)
-        return _whole_logits(self.cfg, _logits(self.params, self.cfg,
-                                               h[last_rows], part), part)
+        logits = _whole_logits(self.cfg, _logits(self.params, self.cfg,
+                                                 h[last_rows], part), part)
+        if sp is not None:
+            sp.phase("fwd.logits")
+        return logits
 
     # ------------------------------------------------------------ engine API
     def submit(self, req: Request) -> SubmitOutcome:
@@ -371,7 +396,13 @@ class PagedRuntime:
         packed row and row count).  Returns (logits [N, V] f32 on the
         device, compute_s).  The device is synchronised before and after
         the timed region, so ``compute_s`` is the step's device time plus
-        its host work, not its launch time."""
+        its host work, not its launch time.  With a span record, the
+        region ``compute_s`` times is ``step.copy_in``, ``step.forward``
+        and ``step.sync_out``, after ``step.pack``'s end and
+        ``step.sync_in``; the counters ``lanes``, ``rows`` (the real
+        packed rows) and ``lane_slots`` (lanes x rows a lane of the
+        lane-major call) ride on the step."""
+        sp = self._spans
         t = tokens.shape[0]
         width = bts.shape[1]
         q_len = lane_rows_bucket(max(n for _, n in row_of), self.spec_k,
@@ -385,8 +416,14 @@ class PagedRuntime:
         offs = positions % self.page
         qpos = np.where(valid, positions, 0).astype(np.int32)
         cuda = self.device.type == "cuda"
+        if sp is not None:
+            sp.args.update(lanes=len(row_of), rows=int(n_rows),
+                           lane_slots=len(row_of) * q_len)
+            sp.phase("step.pack")
         if cuda:
             torch.cuda.synchronize(self.device)
+        if sp is not None:
+            sp.phase("step.sync_in")
         t0 = time.perf_counter()
 
         def dev(a, dtype):
@@ -395,22 +432,37 @@ class PagedRuntime:
 
         lanes = (dev(bts, torch.int32), dev(lane_qpos, torch.int32),
                  dev(gather, torch.long), dev(scatter, torch.long))
-        logits = self._mixed_impl(
-            dev(tokens, torch.long), dev(qpos, torch.int32),
-            dev(page_ids, torch.long), dev(offs, torch.long), lanes,
-            dev(last_rows, torch.long))
+        args = (dev(tokens, torch.long), dev(qpos, torch.int32),
+                dev(page_ids, torch.long), dev(offs, torch.long), lanes,
+                dev(last_rows, torch.long))
+        if sp is not None:
+            t_fwd = sp.phase("step.copy_in")
+        logits = self._mixed_impl(*args)
+        if sp is not None:
+            sp.span("step.forward", t_fwd)
         if cuda:
             torch.cuda.synchronize(self.device)
+        if sp is not None:
+            sp.phase("step.sync_out")
         self.forward_passes += 1
         return logits, time.perf_counter() - t0
 
-    def step(self) -> StepReport:
+    def step(self, spans=None) -> StepReport:
+        """One fused step.  ``spans`` (``core/obs.py::StepSpans``, from the
+        engine's tracer, or None) takes the step's phases in order:
+        ``step.plan``, ``step.pack``, ``step.sync_in``, ``step.copy_in``,
+        ``step.forward``, ``step.sync_out`` (``_run_mixed``),
+        ``step.readback`` (the finite check, argmax and copy to the
+        host), ``step.commit``; and the counter ``chunk_tokens``."""
+        self._spans = spans
         log_mark = len(self.sched.preempt_log)
         plan = self.sched.plan()
         report = StepReport(kind="idle")
         report.preempted = [s.req for s in plan.preempted]
         report.preempt_pairs = list(self.sched.preempt_log[log_mark:])
         report.prefix_hit_tokens = plan.prefix_hit_tokens
+        if spans is not None:
+            spans.phase("step.plan")
         if plan.empty:
             return report
         decodes, prefills = plan.decodes, plan.prefills
@@ -463,6 +515,9 @@ class PagedRuntime:
                                                    bts, last_rows, row_of)
         self.logits_finite &= bool(torch.isfinite(logits).all())
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
+        if spans is not None:
+            spans.args["chunk_tokens"] = sum(c for _, _, c in prefills)
+            spans.phase("step.readback")
 
         for lane in lanes:
             if lane[0] == "d":
@@ -512,4 +567,6 @@ class PagedRuntime:
                     if s.req.generated >= s.req.max_new_tokens:
                         self.sched.complete(s)
                         report.completed.append(s.req)
+        if spans is not None:
+            spans.phase("step.commit")
         return report

@@ -10,7 +10,7 @@ tile ``[arrival, terminal]`` exactly:
 
 and every controller/actuator action (MIG reconfigure with its pause
 window, move, MPS/io throttle, arbiter grant) lands on the shared
-``controller`` track of the same virtual-clock timeline
+``controller`` track of the same timeline
 (``core/obs.py``).  The contract mirrors the gateway's verdict ledger:
 
     **conservation invariant** — a request's named segments sum to its
@@ -46,9 +46,16 @@ affordable.  Export: Chrome/Perfetto ``trace_event`` JSON
 (:meth:`FlightRecorder.table`: ``p99 = X ms door + Y ms sched + ...``).
 
 Tracing is opt-in and zero-cost when off: every producer call site is
-guarded by ``if tracer is not None`` and timestamps are the harness's
-own virtual-clock stamps — attaching a recorder never perturbs the
-clock, so traced and untraced runs are token- and timing-identical.
+guarded by ``if tracer is not None``.  The recorder reads only the clock
+it is given.  Request segments take the harness's own stamps (those it
+hands ``finalize_step``); built with no ``clock`` (the virtual-clock
+harness) the recorder reads no clock, so attaching it never perturbs
+the clock and traced and untraced runs are token- and timing-identical.
+Built with ``clock`` (a wall-clock harness), the engine also stamps each
+step's spans with it (``core/obs.py::StepSpans``): give it the clock the
+harness stamps its steps with, so both lie on one timeline.
+:meth:`FlightRecorder.first_token_splits` gives each request's segment
+sums up to its first token (its queue wait: ``sched_queued``).
 """
 from __future__ import annotations
 
@@ -214,13 +221,15 @@ class FlightRecorder(Tracer):
     ``keep_slowest`` full timelines are retained per tenant per
     ``window_s`` bucket of terminal time (tail exemplars), plus every
     request whose lifetime overlapped a controller action; summaries
-    (bounded deques) are kept for all requests.  All stamps are the
-    harness's virtual-clock values — the recorder never reads a clock.
+    (bounded deques) are kept for all requests.  Request stamps are the
+    harness's values; ``clock`` is read only for the engine's step spans
+    (``core/obs.py::Tracer``).
     """
 
     def __init__(self, keep_slowest: int = 8, window_s: float = 10.0,
-                 max_summaries: int = 8192, max_action_exemplars: int = 512):
-        super().__init__()
+                 max_summaries: int = 8192, max_action_exemplars: int = 512,
+                 clock=None, max_steps: int = 1024):
+        super().__init__(clock, max_steps)
         self.keep_slowest = keep_slowest
         self.window_s = window_s
         self._live: Dict[Tuple[str, int], RequestTimeline] = {}
@@ -241,9 +250,6 @@ class FlightRecorder(Tracer):
     # -------------------------------------------------------- lifecycle
     def _key(self, req) -> Tuple[str, int]:
         return (req.tenant, req.req_id)
-
-    def timeline_of(self, req) -> Optional[RequestTimeline]:
-        return self._live.get(self._key(req))
 
     def _timeline(self, req, wait: str = "sched_queued") -> RequestTimeline:
         """Fetch-or-begin.  Requests fronted by a gateway begin in
@@ -469,17 +475,20 @@ class FlightRecorder(Tracer):
             out[tenant] = res
         return out
 
-    def segment_quantile(self, tenant: str, segment: str, q: float,
-                         verdict: str = "completed") -> float:
-        """Quantile of one named segment's per-request duration
-        (seconds) — e.g. the ``door_queued`` p99 the --trace benchmark
-        arm checks against the two-window TTFT gap."""
-        dq = self.summaries.get(tenant, ())
-        vals = [s.segs.get(segment, 0.0) for s in dq
-                if s.verdict == verdict]
-        if not vals:
-            return 0.0
-        return float(np.quantile(np.asarray(vals), q))
+    def first_token_splits(self) -> Dict[Tuple[str, int],
+                                         Dict[str, float]]:
+        """Each request with a first token, live or finished, keyed by
+        (tenant, request id): its segment sums (seconds) up to that
+        token.  ``sched_queued`` is the time from its arrival to its
+        first token spent outside a step that computed one of its
+        chunks."""
+        out = {(s.tenant, s.req_id): s.ttft_segs
+               for dq in self.summaries.values() for s in dq
+               if s.ttft is not None}
+        for key, tl in self._live.items():
+            if tl.first_token_t is not None:
+                out[key] = tl.seg_sums(until=tl.first_token_t)
+        return out
 
     def table(self, now: Optional[float] = None) -> str:
         """Human-readable per-tenant breakdown table."""

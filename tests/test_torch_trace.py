@@ -7,7 +7,13 @@ lint (``FlightRecorder.check``) holds; tracing off is token- and timing-
 identical to tracing on; a real preemption on the port's paged engine
 lands in the victim's timeline; and every method of the port's actuator
 (and of its copy of the simulator) emits exactly one trace event, the
-twin of ``tests/test_trace.py``'s lint."""
+twin of ``tests/test_trace.py``'s lint.
+
+A recorder with a clock gets the paged step's spans: its phases tile
+``engine.step`` in order, the forward's phases tile ``step.forward``'s
+inside, the spans around the forward are ``StepReport.compute_s``, the
+counters count the lane-major call's padding, and with no tracer no
+tracer method runs."""
 import json
 
 import numpy as np
@@ -196,3 +202,183 @@ def test_every_actuator_method_emits_exactly_one_event():
     assert len(rec["warm"]) == 1 and rec["pages"] >= 2
     (ev,) = [e for e in act_tracer.actions if e.name == "migrate"]
     assert ev.args["warm"] == 1 and ev.args["pages"] == rec["pages"]
+
+
+# ------------------------------------------------------------ step spans
+STEP_PHASES = ["step.plan", "step.pack", "step.sync_in", "step.copy_in",
+               "step.forward", "step.sync_out", "step.readback",
+               "step.commit"]
+LAYER_PHASES = ["fwd.qkv", "fwd.kv_write", "fwd.attention", "fwd.out",
+                "fwd.ffn"]
+
+
+def _mixed_requests(n=3, prompt_len=12, max_new=5, seed=17):
+    rng = np.random.default_rng(seed)
+    return [Request(req_id=j, tenant="T1", prompt_len=prompt_len,
+                    max_new_tokens=max_new, arrival=0.0,
+                    prompt_tokens=rng.integers(0, CFG.vocab_size,
+                                               prompt_len))
+            for j in range(n)]
+
+
+def _clocked_run():
+    """A paged engine served to the end under a recorder with a clock,
+    each step stamped by the same clock; (engine, recorder, reports)."""
+    import time
+    eng = ServingEngine(CFG, max_slots=4, seq_cap=64, page_size=4, seed=0,
+                        backend="paged", chunk_tokens=8, attn_impl="ref",
+                        device="cpu")
+    rec = FlightRecorder(clock=time.perf_counter)
+    eng.tracer = rec
+    for r in _mixed_requests():
+        assert eng.submit(r)
+    reports = []
+    while eng.has_work():
+        t0 = time.perf_counter()
+        rep = eng.step()
+        t1 = time.perf_counter()
+        eng.finalize_step(rep, t1, t0)
+        reports.append(rep)
+        assert len(reports) < 200
+    return eng, rec, reports
+
+
+def test_step_spans_tile_the_step():
+    eng, rec, reports = _clocked_run()
+    assert len(rec.steps) == len(reports)
+    assert {r.kind for r in reports} >= {"prefill", "mixed", "decode"}
+    n_layers = len(eng.runtime._layers)
+    root = own = 0.0
+    for st in rec.steps:
+        top = [(n, s, e) for n, s, e in zip(st.names, st.starts, st.ends)
+               if n.startswith("step.")]
+        assert [n for n, _, _ in top] == STEP_PHASES
+        # the children run back to back from the step's start
+        assert top[0][1] == st.t0
+        for (_, _, e), (_, s, _) in zip(top, top[1:]):
+            assert s == e
+        assert top[-1][2] <= st.t1
+        root += st.t1 - st.t0
+        own += (st.t1 - st.t0) - sum(e - s for _, s, e in top)
+        # the forward's phases, in order, back to back inside step.forward
+        fwd = [(n, s, e) for n, s, e in zip(st.names, st.starts, st.ends)
+               if n.startswith("fwd.")]
+        assert [n for n, _, _ in fwd] == (
+            ["fwd.embed"] + LAYER_PHASES * n_layers + ["fwd.logits"])
+        for (_, _, e), (_, s, _) in zip(fwd, fwd[1:]):
+            assert s == e
+        (f0, f1), = [(s, e) for n, s, e in top if n == "step.forward"]
+        assert f0 <= fwd[0][1] and fwd[-1][2] <= f1
+        assert {"lanes", "rows", "lane_slots", "chunk_tokens"} <= set(st.args)
+    assert own <= 0.05 * root
+    # every finalize is a span of its step's record, on the same clock,
+    # after the step; the tracer's event list gains nothing a step
+    for st in rec.steps:
+        (fin,) = [i for i, n in enumerate(st.names) if n == "engine.finalize"]
+        assert st.starts[fin] >= st.t1 and st.ends[fin] >= st.starts[fin]
+    assert not [ev for ev in rec.events if ev.name == "engine.finalize"]
+
+
+def test_step_records_are_a_bounded_ring():
+    import time
+    rec = FlightRecorder(clock=time.perf_counter, max_steps=3)
+    eng = ServingEngine(CFG, max_slots=4, seq_cap=64, page_size=4, seed=0,
+                        backend="paged", chunk_tokens=8, attn_impl="ref",
+                        device="cpu")
+    _drive(eng, _mixed_requests(), tracer=rec)
+    assert eng.forward_passes > 3
+    assert len(rec.steps) == 3
+    # the ring holds the last steps, each closed and finalized
+    assert all(st.t1 is not None and st.total("engine.finalize") >= 0.0
+               and "engine.finalize" in st.names for st in rec.steps)
+    assert rec.steps[0].t0 < rec.steps[1].t0 < rec.steps[2].t0
+
+
+def test_compute_spans_are_compute_s():
+    _, rec, reports = _clocked_run()
+    for st, rep in zip(rec.steps, reports):
+        timed = sum(st.total(n) for n in ("step.copy_in", "step.forward",
+                                          "step.sync_out"))
+        assert abs(timed - rep.compute_s) < 1e-3
+        # no drafts: a decode lane's one row commits one token
+        assert st.args["rows"] == rep.tokens
+        assert st.args["chunk_tokens"] == rep.prefill_tokens
+
+
+def test_no_clock_records_no_step_spans():
+    rec = FlightRecorder()
+    _drive(_overcommitted_engine(), _mixed_requests(2), tracer=rec)
+    assert not rec.steps and rec.events == []
+    assert rec.finished == 2
+
+
+def test_tracing_off_calls_no_tracer_method(monkeypatch):
+    from repro_torch.core import obs
+    from repro_torch.serving import trace
+
+    def boom(*args, **kw):
+        raise AssertionError("a tracer method ran with tracing off")
+    for cls in (obs.Tracer, obs.StepSpans, trace.FlightRecorder):
+        for name, v in list(vars(cls).items()):
+            if callable(v):
+                monkeypatch.setattr(cls, name, boom)
+    eng = ServingEngine(CFG, max_slots=4, seq_cap=64, page_size=4, seed=0,
+                        backend="paged", chunk_tokens=8, attn_impl="ref",
+                        device="cpu")
+    _drive(eng, _mixed_requests(2))
+    assert eng.runtime._spans is None
+
+
+@pytest.mark.parametrize("row_of,spec_k", [
+    ([(0, 1), (1, 1), (2, 8)], 0),         # two decode lanes and a chunk
+    ([(0, 1), (1, 1), (2, 1)], 0),         # decode alone: no pad slot
+    ([(0, 3), (3, 1), (4, 5)], 2),         # drafts and a part chunk
+    ([(0, 8), (8, 3)], 0),                 # two chunks, one short
+], ids=["mixed", "decode", "spec", "chunks"])
+def test_lane_slots_count_the_layout_padding(row_of, spec_k):
+    import time
+
+    from repro_torch.core.obs import StepSpans
+    from repro_torch.serving.paged_runtime import (lane_major_layout,
+                                                   lane_rows_bucket)
+    eng = ServingEngine(CFG, max_slots=4, seq_cap=64, page_size=4, seed=0,
+                        backend="paged", chunk_tokens=8, attn_impl="ref",
+                        spec_k=spec_k, device="cpu")
+    rt = eng.runtime
+    n_rows = sum(n for _, n in row_of)
+    t = 16
+    positions = np.zeros(t, np.int32)
+    for r0, n in row_of:
+        positions[r0:r0 + n] = 4 + np.arange(n)
+    tokens = np.ones(t, np.int32)
+    bts = np.zeros((len(row_of), 4), np.int32)
+    last_rows = np.array([r0 + n - 1 for r0, n in row_of], np.int32)
+    rt._spans = StepSpans(time.perf_counter)
+    rt._run_mixed(tokens, positions, n_rows, bts, last_rows, row_of)
+    args = rt._spans.args
+    q_len = lane_rows_bucket(max(n for _, n in row_of), spec_k, rt.chunk)
+    _, scatter, _ = lane_major_layout(row_of, positions, q_len)
+    pad = len(row_of) * q_len - np.unique(scatter[:n_rows]).size
+    assert args["lanes"] == len(row_of) and args["rows"] == n_rows
+    assert args["lane_slots"] - args["rows"] == pad
+
+
+def test_first_token_splits_hold_live_and_finished_requests():
+    _, rec, _ = _clocked_run()
+    done = rec.first_token_splits()
+    assert set(done) == {("T1", j) for j in range(3)}
+    for segs in done.values():
+        assert segs["prefill_chunk"] > 0 and segs.get("sched_queued", 0) >= 0
+    # a request past its first token but not finished is still read
+    eng = _overcommitted_engine()
+    live = FlightRecorder()
+    eng.tracer = live
+    (req,) = _mixed_requests(1, prompt_len=6, max_new=6)
+    assert eng.submit(req)
+    t = 0.0
+    while not req.generated:
+        eng.finalize_step(eng.step(), t + 0.01, t)
+        t += 0.01
+    assert not live.summaries
+    (segs,) = live.first_token_splits().values()
+    assert abs(sum(segs.values()) - req.prefill_done) < 1e-9
