@@ -55,7 +55,7 @@ def run_tiny(monkeypatch):
     monkeypatch.setattr(harness, "forbidden_loaded", lambda: [])
 
     def run(cell_name, seed=20260, seconds=1.5, trace=False, limits=None,
-            hook=None, control=False):
+            hook=None, control=False, log=lambda _: None):
         cell, pc = tiny(cell_name)
         if limits is not None:
             cell.limits = limits
@@ -67,7 +67,7 @@ def run_tiny(monkeypatch):
             return harness.run_cell(cell, seed, seconds, trace,
                                     t_start=time.perf_counter(),
                                     device="cpu", port_cfg=pc, hook=hook,
-                                    control=control, log=lambda _: None)
+                                    control=control, log=log)
         finally:
             torch.set_num_threads(threads)
     return run

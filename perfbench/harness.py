@@ -21,6 +21,7 @@ with ``read(ctx) -> float | None``; a cell reports the metrics that
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import gc
 import importlib.util
@@ -318,59 +319,153 @@ def _start_profiler():
             torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=acts)
     prof.start()
+    if torch.cuda.is_available():
+        # the device records of the launches made just after the start can
+        # be lost (with torch 2.11.0+cu128, a trace's first few to first
+        # 65): spend them on launches before the first traced step, which
+        # owns none of them
+        x = torch.zeros(1, device="cuda")
+        for _ in range(64):
+            x.add_(1)
+        torch.cuda.synchronize()
     return prof
 
 
 def warm_profiler() -> None:
     """The profiler's first start sets up its tracer; pay that in set-up."""
-    import torch
-    prof = _start_profiler()
-    torch.ones(1, device="cuda").add_(1)
-    torch.cuda.synchronize()
-    prof.stop()
+    _start_profiler().stop()
 
 
 # ------------------------------------------------------------------ trace
 LABELS = ("sched.plan", "runtime.run_mixed", "model.forward")
+# host runtime calls that put work on the device: each device record
+# carries the correlation id of the call that launched it (``FunctionEvent``
+# ``id`` on both sides); a graph launch's kernels all carry its one id
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+            "cuLaunchKernel", "cuLaunchCooperativeKernel",
+            "cudaGraphLaunch", "cuGraphLaunch",
+            "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def read_trace(prof, steps: List[StepRec]) -> Dict:
-    """Kernels and host labels of the traced steps: busy seconds, the
-    traced window's length, device time by kernel family, and the idle
-    gaps by the innermost label the host was in when each began."""
+    return read_events(prof.events(), steps)
+
+
+def read_events(events, steps: List[StepRec]) -> Dict:
+    """The traced steps' device records, each paired with the host launch
+    that made it, and read over the **whole** steps alone.
+
+    A traced step owns the host time from its ``sched.plan`` to the next
+    step's (the last to the trace's end), and every launch made in it.  It
+    is whole when its ``model.forward`` made at least one launch, every
+    launch it made has its device record, and no device record without a
+    launch falls among its device work.  A trace that lost records then
+    reads the steps it holds whole, never their work over part of their
+    time.
+
+    Returns the whole steps' kernels (name, start, end, in microseconds),
+    busy seconds (their union) and the host seconds they own (the whole
+    trace's, where no step is whole), device seconds by kernel family, the
+    idle gaps within whole steps by the innermost label the host was in
+    when each began, the census, and ``steps`` with ``step_busy_s`` (each
+    whole step's forward kernels, their union): empty unless at least
+    half the traced steps are whole, so the readers of the device trace
+    find nothing to read."""
     import torch
-    kernels, spans, forwards = [], [], []
-    for e in prof.events():
-        on_device = e.device_type == torch.autograd.DeviceType.CUDA
-        if e.name in LABELS:             # on the device too, as annotations
-            if not on_device:
-                spans.append((e.time_range.start, e.time_range.end, e.name))
-            elif e.name == "model.forward":
-                forwards.append((e.time_range.start, e.time_range.end))
-        elif on_device:
-            kernels.append((e.name, e.time_range.start, e.time_range.end))
-    iv = [(s, e) for _, s, e in kernels]
-    busy = yardstick.busy_union(iv) / 1e6
-    # each traced step's busy seconds: its forward's kernels on the device
-    forwards.sort()
-    per_step = ([yardstick.busy_union([(s, e) for s, e in iv
-                                       if f0 <= s < f1]) / 1e6
-                 for f0, f1 in forwards]
-                if len(forwards) == len(steps) else None)
-    window = steps[-1].end - steps[0].start if steps else 0.0
-    fam: Dict[str, float] = {}
-    for name, s, e in kernels:
-        f = yardstick.family(name)
-        fam[f] = fam.get(f, 0.0) + (e - s) / 1e6
-    gaps: Dict[str, float] = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    records, launches, spans = [], [], []
+    for e in events:
+        s, t = e.time_range.start, e.time_range.end
+        if e.device_type == cuda:
+            if not e.is_user_annotation:   # the labels' ranges on the device
+                records.append((e.name, s, t, e.id))
+        elif e.name in LABELS:
+            spans.append((s, t, e.name))
+        elif e.name.startswith(LAUNCHES):
+            launches.append((s, e.id, e.name.startswith(GRAPH_LAUNCHES)))
     spans.sort()
-    for g0, g1 in yardstick.idle_gaps(iv):
+    forwards = [(s, t) for s, t, name in spans if name == "model.forward"]
+    plans = [s for s, _, name in spans if name == "sched.plan"]
+    by_id: Dict[int, list] = {}
+    for r in records:
+        by_id.setdefault(r[3], []).append(r)
+    launched = {cid for _, cid, _ in launches}
+    unpaired = [r for r in records if r[3] not in launched]
+    n = len(steps)
+    own = [[] for _ in range(n)]         # records of the step's launches
+    fwd = [[] for _ in range(n)]         # ... of its forward's launches
+    whole = [False] * n
+    starts: List[float] = []
+    if n and len(forwards) == n:
+        prev_end = float("-inf")
+        for f0, f1 in forwards:
+            k = bisect.bisect_right(plans, f0) - 1
+            starts.append(plans[k] if k >= 0 and plans[k] > prev_end
+                          else f0)
+            prev_end = f1
+        whole = [True] * n
+        launched_fwd = [False] * n
+        for t, cid, _ in launches:
+            i = bisect.bisect_right(starts, t) - 1
+            if i < 0:                    # before the first traced step
+                continue
+            inside = forwards[i][0] <= t < forwards[i][1]
+            launched_fwd[i] |= inside
+            got = by_id.get(cid)
+            if not got:
+                whole[i] = False
+                continue
+            own[i].extend(got)
+            if inside:
+                fwd[i].extend(got)
+        # a record with no launch marks the step whose device work it is in
+        firsts = sorted((min(r[1] for r in own[i]), i)
+                        for i in range(n) if own[i])
+        for r in unpaired:
+            k = bisect.bisect_right(firsts, (r[1], n)) - 1
+            if k >= 0:
+                whole[firsts[k][1]] = False
+        whole = [w and f for w, f in zip(whole, launched_fwd)]
+    ok = [i for i in range(n) if whole[i]]
+    kept = [r for i in ok for r in own[i]]
+    if ok:
+        busy = yardstick.busy_union([(s, t) for _, s, t, _ in kept]) / 1e6
+        window = sum((steps[i + 1].start if i + 1 < n else steps[i].end)
+                     - steps[i].start for i in ok)
+    else:
+        busy = yardstick.busy_union([(s, t) for _, s, t, _ in records]) / 1e6
+        window = steps[-1].end - steps[0].start if steps else 0.0
+    fam: Dict[str, float] = {}
+    for name, s, t, _ in kept:
+        f = yardstick.family(name)
+        fam[f] = fam.get(f, 0.0) + (t - s) / 1e6
+    gaps: Dict[str, float] = {}
+    for g0, g1 in (yardstick.idle_gaps([(s, t) for _, s, t, _ in records])
+                   if ok else ()):
+        i0 = bisect.bisect_right(starts, g0) - 1
+        i1 = bisect.bisect_right(starts, g1) - 1
+        if i0 < 0 or not all(whole[i0:i1 + 1]):
+            continue
         inside = [sp for sp in spans if sp[0] <= g0 < sp[1]]
         name = (min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside
                 else "engine.step or loop")
         gaps[name] = gaps.get(name, 0.0) + (g1 - g0) / 1e6
-    return {"kernels": kernels, "busy_s": busy, "window_s": window,
-            "step_busy_s": per_step, "families": fam, "gaps": gaps}
+    enough = bool(n) and 2 * len(ok) >= n
+    read = ok if enough else []
+    census = {"traced_steps": n, "host_forwards": len(forwards),
+              "whole_steps": len(ok), "host_launches": len(launches),
+              "device_records": len(records),
+              "lost_records": sum(1 for _, cid, _ in launches
+                                  if cid not in by_id),
+              "unpaired_records": len(unpaired),
+              "graph_launches": sum(1 for *_, g in launches if g)}
+    return {"kernels": [(name, s, t) for name, s, t, _ in kept],
+            "busy_s": busy, "window_s": window, "families": fam,
+            "gaps": gaps, "census": census,
+            "steps": [steps[i] for i in read],
+            "step_busy_s": [yardstick.busy_union(
+                [(s, t) for _, s, t, _ in fwd[i]]) / 1e6 for i in read]}
 
 
 # ---------------------------------------------------------------- metrics
@@ -383,7 +478,6 @@ class Context:
     w0: float
     w1: float
     steps: List[StepRec]               # the window's steps, none traced
-    traced: List[StepRec]
     reqs: Dict[int, ReqRec]
     setup_s: float
     slo: Dict
@@ -517,8 +611,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
                     if win.w0 <= s.start and s.end <= win.w1]
     traced = [s for s in win.steps if s.profiled]
     tr = read_trace(win.prof, traced) if win.prof is not None else None
+    if tr is not None:
+        log(json.dumps({"trace_census": tr["census"]}))
     ctx = Context(kind=kind, model=m, page_size=eng["page_size"],
-                  w0=win.w0, w1=win.w1, steps=window_steps, traced=traced,
+                  w0=win.w0, w1=win.w1, steps=window_steps,
                   reqs=win.reqs, setup_s=setup_s, slo=mix.get("slo", {}),
                   peak=yardstick.PEAKS.get(card), trace=tr)
     metrics = read_metrics(cell.per_layer if trace else cell.end_to_end, ctx)

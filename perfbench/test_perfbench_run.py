@@ -42,13 +42,26 @@ def test_tiny_run_is_correct_and_well_formed(run_tiny, cell):
 
 
 def test_tiny_traced_run_reads_the_per_layer_metrics(run_tiny):
+    lines = []
     result, _ = run_tiny("granite_3_8b.shared_prefix", trace=True,
-                         limits=TINY)
+                         limits=TINY, log=lines.append)
     assert result["correct"]
     # no card: the device's readers find nothing to read
     assert set(result["metrics"]) <= {"engine_host_pct", "prefix_hit_pct"}
-    assert {"busy_s", "window_s"} <= set(result["device"])
+    assert list(result) == ["correct", "attempted", "failed", "metrics",
+                            "device", "breakdown", "checks"]
+    assert set(result["device"]) == {"platform", "kind", "count",
+                                     "memory_peak_bytes", "busy_s",
+                                     "window_s"}
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+    # the trace's census goes to the log, not to the result line
+    (census,) = [json.loads(x)["trace_census"] for x in lines
+                 if "trace_census" in x]
+    assert census["traced_steps"] == 4
+    assert census["whole_steps"] == 0         # no launch on the CPU
+    assert set(census) == {"traced_steps", "host_forwards", "whole_steps",
+                           "host_launches", "device_records", "lost_records",
+                           "unpaired_records", "graph_launches"}
 
 
 def _alter_tokens(engine):

@@ -1,13 +1,16 @@
 """The yardstick's counts against small cases worked by hand, the tail
 arithmetic over every request (a missing first token censored at the
-window's close), and the trace arithmetic."""
+window's close), and the trace arithmetic: each device record paired with
+its host launch, and the device trace read over whole steps alone."""
 from __future__ import annotations
 
 import json
 import statistics
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from perfbench import harness, stats, traffic, yardstick
 from perfbench.harness import Context, ReqRec, StepRec
@@ -68,7 +71,7 @@ def _req(rid, due, emits, finished=None, refused=False, warm=False):
 
 def _ctx(reqs, steps=()):
     return Context(kind=dense_gqa, model=M, page_size=16, w0=10.0, w1=20.0,
-                   steps=list(steps), traced=[],
+                   steps=list(steps),
                    reqs={r.src.rid: r for r in reqs}, setup_s=3.0,
                    slo={"ttft_ms": 200, "mean_gap_ms": 100}, peak=None,
                    trace=None)
@@ -153,3 +156,197 @@ def test_idle_counts_each_traced_step_at_its_kinds_unprofiled_wall():
     got = yardstick.idle_pct([0.15, 0.03], traced, window)
     assert got == pytest.approx(100 * (1 - 0.18 / 0.26))
     assert yardstick.idle_pct([0.1], traced[:1], window[:2]) is None
+
+
+# ------------------------------------------- the trace, paired step by step
+CPU_, CUDA_ = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+PK = {"bf16_flops": 1e12, "hbm_bytes_s": 1e9}
+_DECODE = dict(positions=np.array([20, 17]), row_of=[(0, 1), (1, 1)],
+               block_tables=np.array([[7, 3, 0], [7, 5, 0]]), lanes=[0, 1],
+               admitted=[])
+_CHUNK = dict(_DECODE, positions=np.array([22, 4, 5, 6]),
+              row_of=[(0, 1), (1, 3)])
+# the window's unprofiled steps, of both kinds
+WINDOW = [StepRec(0.0, 0.0009, 0.0, 0, **_DECODE),
+          StepRec(0.0, 0.0011, 0.0, 0, **_DECODE),
+          StepRec(0.0, 0.0020, 0.0, 0, **_CHUNK)]
+
+
+def _ev(name, s, e, cid=0, device=False, annotation=False):
+    return SimpleNamespace(name=name, id=cid, device_type=CUDA_ if device
+                           else CPU_, is_user_annotation=annotation,
+                           time_range=SimpleNamespace(start=s, end=e))
+
+
+def _trace(keep=range(4), drop=(), unlaunched=(), split=(),
+           no_device_forward=(), lost_before=0):
+    """Profiler events of 4 traced steps of 3 layers, a step i at 1,000 i
+    microseconds: the host's labels, a copy in, per layer a launch of a
+    matmul, a paged-attention and an elementwise kernel inside
+    ``model.forward``, a readback kernel after it, each launch paired by
+    its id with its device record, and the forward's range on the device.
+    ``keep``: the steps traced; ``drop`` / ``unlaunched``: the (step,
+    call) whose device record / host launch the trace lost; ``split``:
+    steps whose attention call is two kernels; ``no_device_forward``:
+    steps whose device range of ``model.forward`` is missing;
+    ``lost_before``: launches before the first step whose records the
+    trace lost."""
+    events = [_ev("cudaLaunchKernel", -500.0 + 10 * k, -496.0 + 10 * k,
+                  1000 + k) for k in range(lost_before)]
+    traced = []
+    cid = 0
+    for i in keep:
+        t = 1000.0 * i
+        events += [_ev("sched.plan", t, t + 50),
+                   _ev("runtime.run_mixed", t + 60, t + 900),
+                   _ev("model.forward", t + 100, t + 800)]
+        calls = [("cudaMemcpyAsync", t + 70, "Memcpy HtoD (Pageable -> "
+                  "Device)", t + 75, 5)]
+        for layer in range(3):
+            t0 = t + 100 + 200 * layer
+            calls.append(("cudaLaunchKernel", t0, "nvjet_tst_128x192",
+                          t0 + 30, 40))
+            if i in split:
+                calls += [("cudaLaunchKernelExC", t0 + 20,
+                           "paged_attention_split_kernel", t0 + 70, 30),
+                          ("cuLaunchKernel", t0 + 25,
+                           "paged_attention_combine_kernel", t0 + 100, 20)]
+            else:
+                calls.append(("cudaLaunchKernel", t0 + 20,
+                              "paged_attention_tc_kernel", t0 + 70, 50))
+            calls.append(("cudaLaunchKernel", t0 + 40,
+                          "vectorized_elementwise_kernel", t0 + 120, 10))
+        calls.append(("cudaLaunchKernel", t + 850, "reduce_argmax_kernel",
+                      t + 855, 5))
+        for k, (launch, lt, kernel, ks, kd) in enumerate(calls):
+            cid += 1
+            if (i, k) not in unlaunched:
+                events.append(_ev(launch, lt, lt + 4, cid))
+            if (i, k) not in drop:
+                events.append(_ev(kernel, ks, ks + kd, cid, device=True))
+        if i not in no_device_forward:
+            events.append(_ev("model.forward", t + 130, t + 630,
+                              device=True, annotation=True))
+        start = 50.0 + 0.001 * i
+        traced.append(StepRec(start, start + 0.0009, 0.0, 0,
+                              **(_CHUNK if i == 2 else _DECODE)))
+    return events, traced
+
+
+def _read(trace):
+    ctx = Context(kind=dense_gqa, model=M, page_size=16, w0=0.0, w1=1.0,
+                  steps=WINDOW, reqs={}, setup_s=1.0, slo={}, peak=PK,
+                  trace=trace)
+    return {"roofline": harness.load_metric("paged_attention_roofline")(ctx),
+            "idle": harness.load_metric("device_idle_pct")(ctx),
+            "families": trace["families"]}
+
+
+def _today(events, traced):
+    """The readings as the parent read them: every device record, and each
+    step's busy time from the forward's range on the device."""
+    kernels = [(e.name, e.time_range.start, e.time_range.end)
+               for e in events if e.device_type == CUDA_
+               and e.name not in harness.LABELS]
+    forwards = sorted((e.time_range.start, e.time_range.end) for e in events
+                      if e.device_type == CUDA_ and e.name == "model.forward")
+    iv = [(s, e) for _, s, e in kernels]
+    per_step = ([yardstick.busy_union([(s, e) for s, e in iv
+                                       if f0 <= s < f1]) / 1e6
+                 for f0, f1 in forwards]
+                if len(forwards) == len(traced) else None)
+    fam = {}
+    for name, s, e in kernels:
+        fam[yardstick.family(name)] = (fam.get(yardstick.family(name), 0.0)
+                                       + (e - s) / 1e6)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events if e.device_type == CPU_
+                   and e.name in harness.LABELS)
+    gaps = {}
+    for g0, g1 in yardstick.idle_gaps(iv):
+        inside = [sp for sp in spans if sp[0] <= g0 < sp[1]]
+        name = (min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside
+                else "engine.step or loop")
+        gaps[name] = gaps.get(name, 0.0) + (g1 - g0) / 1e6
+    attn = sum(e - s for name, s, e in kernels
+               if yardstick.family(name) == "paged_attention") / 1e6
+    bound = sum(M["num_hidden_layers"] * yardstick.roofline_s(
+        *yardstick.paged_attention_call(M, st.positions, st.row_of,
+                                        st.block_tables, 16), PK)
+        for st in traced)
+    return {"roofline": 100.0 * bound / attn,
+            "idle": (yardstick.idle_pct(per_step, traced, WINDOW)
+                     if per_step else None),
+            "families": fam, "gaps": gaps,
+            "busy_s": yardstick.busy_union(iv) / 1e6,
+            "window_s": traced[-1].end - traced[0].start}
+
+
+def _same(got, want):
+    for key in ("roofline", "idle"):
+        assert (got[key] is None) == (want[key] is None), key
+        if want[key] is not None:
+            assert got[key] == pytest.approx(want[key]), key
+    assert got["families"] == pytest.approx(want["families"])
+
+
+def _random_drop(seed):
+    rng = np.random.default_rng(seed)
+    return {(i, k) for i in range(4) for k in range(11)
+            if rng.random() < 0.08}
+
+
+# case: (trace arguments, the steps it holds whole)
+CASES = {
+    "all_records": ({}, [0, 1, 2, 3]),
+    "half_of_one_step_dropped": ({"drop": {(2, k) for k in range(1, 6)}},
+                                 [0, 1, 3]),
+    "two_kernels_a_call": ({"split": {1}}, [0, 1, 2, 3]),
+    "no_device_forward_range": ({"no_device_forward": {3}}, [0, 1, 2, 3]),
+    "launch_record_lost": ({"unlaunched": {(1, 2)}}, [0, 2, 3]),
+    "lost_before_the_first_step": ({"lost_before": 3}, [0, 1, 2, 3]),
+    "most_dropped": ({"drop": {(0, 4), (1, 0), (3, 9)}}, [2]),
+    **{f"random_drop_{s}": ({"drop": _random_drop(s)},
+                            sorted(set(range(4))
+                                   - {i for i, _ in _random_drop(s)}))
+       for s in range(4)}}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_the_trace_is_read_over_its_whole_steps_alone(case):
+    kw, whole = CASES[case]
+    events, traced = _trace(**kw)
+    tr = harness.read_events(events, traced)
+    got = _read(tr)
+    census = tr["census"]
+    assert census["traced_steps"] == 4
+    assert census["whole_steps"] == len(whole)
+    assert census["lost_records"] == (len(kw.get("drop", ()))
+                                      + kw.get("lost_before", 0))
+    assert census["unpaired_records"] == len(kw.get("unlaunched", ()))
+    assert census["graph_launches"] == 0
+    if len(whole) < 2:
+        # under half the steps whole: the device trace's metrics read null
+        assert got["roofline"] is None and got["idle"] is None
+        assert tr["steps"] == [] and tr["step_busy_s"] == []
+        return
+    # the same readings as a trace that held those steps alone, whole
+    alone = _read(harness.read_events(*_trace(keep=whole)))
+    _same(got, alone)
+    assert tr["steps"] == [traced[i] for i in whole]
+    if case in ("all_records", "two_kernels_a_call",
+                "no_device_forward_range", "lost_before_the_first_step"):
+        # every record held, and the bound unchanged by how the call is cut
+        full = _read(harness.read_events(*_trace()))
+        _same(got, full)
+        today = _today(*_trace())
+        _same(full, today)
+        assert tr["busy_s"] == pytest.approx(today["busy_s"])
+        assert tr["window_s"] == pytest.approx(today["window_s"])
+        assert tr["gaps"] == pytest.approx(today["gaps"])
+        assert len(tr["kernels"]) == census["device_records"]
+        assert census["host_launches"] == (census["device_records"]
+                                           + kw.get("lost_before", 0))
+    if case == "half_of_one_step_dropped":
+        # the parent divided the full bound by what the trace held
+        assert _today(events, traced)["roofline"] > got["roofline"]
